@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Phase-decomposition microbench: where do the whitted / path frames
 spend their time? One JSON line per variant (pipelined multi-frame
-timing like bench_all; single TPU process).
+timing like bench_all; one process on the default device).
 
 Usage: python bench_decomp.py [whitted|path]
 """
@@ -12,7 +12,6 @@ import sys
 import time
 
 if "path" in sys.argv[1:2]:
-    os.environ.setdefault("TRT_PIX_H", "32")
     os.environ.setdefault("TRT_BVH_OPT", "2")
 
 import jax
@@ -72,8 +71,9 @@ def _instances_notex(width, height):
 def whitted():
     from tpu_raytracer.app import scenes
     from tpu_raytracer.render import RenderConfig, render_image_whitted, render_image
+    from tpu_raytracer.render.renderer import default_backend
 
-    backend = "pallas" if jax.default_backend() == "tpu" else "bvh"
+    backend = default_backend()
     variants = [("flat", lambda: scenes.scene_instances(512, 512, flatten=True)),
                 ("notex", lambda: _instances_notex(512, 512))]
     for tag, mk in variants:
@@ -92,8 +92,9 @@ def whitted():
 def path():
     from tpu_raytracer.app import scenes
     from tpu_raytracer.render import RenderConfig, render_image_path_traced
+    from tpu_raytracer.render.renderer import default_backend
 
-    backend = "pallas" if jax.default_backend() == "tpu" else "bvh"
+    backend = default_backend()
     arrays, cam = scenes.scene_colonnade(512, 512)
     cfg = RenderConfig(cam.width, cam.height, backend=backend)
     p = cam.ray_params()
@@ -106,16 +107,6 @@ def path():
 
     for b in (0, 1, 2):
         report(f"path b={b} 2spp", timed(lambda: frame(b)))
-    os.environ["TRT_SORT_SECONDARY"] = "0"
-    # re-jit with the sort disabled (env read inside secondary_cast_fn
-    # at trace time; new config object forces a fresh jit cache entry)
-    cfg2 = RenderConfig(cam.width, cam.height, backend=backend,
-                        exposure=1.0 + 1e-9)
-    def frame2(b, s=2):
-        return render_image_path_traced(
-            cfg2, arrays, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
-            key, b, s)
-    report("path b=2 2spp nosort", timed(lambda: frame2(2)))
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ def summarize(logdir, frames=4):
     with gzip.open(paths[0], "rt") as f:
         trace = json.load(f)
     events = trace.get("traceEvents", [])
-    # device-track complete events: pid/tid names identify TPU tracks
+    # device-track complete events: pid/tid names identify device tracks
     names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
@@ -50,7 +50,7 @@ def summarize(logdir, frames=4):
         if e.get("ph") != "X":
             continue
         pname = names.get(e.get("pid"), "")
-        if "TPU" not in pname and "/device" not in pname.lower():
+        if "/device" not in pname.lower():
             continue
         # skip the top-level module event (it spans everything)
         tot[e["name"]] += e.get("dur", 0.0)
@@ -67,8 +67,9 @@ def main():
     from tpu_raytracer.render import (RenderConfig, render_image,
                                       render_image_whitted,
                                       render_image_path_traced)
+    from tpu_raytracer.render.renderer import default_backend
 
-    backend = "pallas" if jax.default_backend() == "tpu" else "bvh"
+    backend = default_backend()
     if which in ("whitted", "primary"):
         arrays, cam = scenes.scene_instances(512, 512, flatten=True)
         cfg = RenderConfig(cam.width, cam.height, backend=backend)
@@ -77,7 +78,6 @@ def main():
         fn = (lambda: render_image(*args)) if which == "primary" else (
             lambda: render_image_whitted(*args))
     else:
-        os.environ.setdefault("TRT_PIX_H", "32")
         os.environ.setdefault("TRT_BVH_OPT", "2")
         arrays, cam = scenes.scene_colonnade(512, 512)
         cfg = RenderConfig(cam.width, cam.height, backend=backend)

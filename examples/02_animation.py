@@ -27,7 +27,7 @@ arrays = scene.compile()
 
 S = int(os.environ.get("TRT_EXAMPLE_SIZE", "128"))  # CI shrinks to 64
 camera = Camera.looking(S, S, fov_deg=50.0, pose=[0, -4, 0, 0, 0, 0])
-config = RenderConfig(width=S, height=S, backend="bvh")
+config = RenderConfig(width=S, height=S)
 p = camera.ray_params()
 
 for frame in range(5):

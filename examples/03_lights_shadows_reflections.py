@@ -37,7 +37,7 @@ arrays = scene.compile()
 S = int(os.environ.get("TRT_EXAMPLE_SIZE", "192"))  # CI shrinks to 64
 camera = Camera.looking(S, S, fov_deg=55.0, pose=[0, -5, 1.0, 0, -0.15, 0])
 config = RenderConfig(
-    width=S, height=S, backend="bvh", lighting="lambert_shadow",
+    width=S, height=S, lighting="lambert_shadow",
     point_lights=(PointLight(position=(2.0, -2.0, 4.0), intensity=40.0),),
 )
 p = camera.ray_params()

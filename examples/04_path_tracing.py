@@ -18,7 +18,7 @@ from tpu_raytracer.render.pipeline import render_image_path_traced
 from tpu_raytracer.utils import save_png
 
 arrays, camera = scene_cornell(int(os.environ.get("TRT_EXAMPLE_SIZE", "128")))
-config = RenderConfig(width=camera.width, height=camera.height, backend="bvh")
+config = RenderConfig(width=camera.width, height=camera.height)
 p = camera.ray_params()
 img = np.asarray(render_image_path_traced(
     config, arrays, p["K_inv"], p["D"], p["pose"], p["inv_pose"],

@@ -1,8 +1,9 @@
 """Multi-chip rendering: shard the image rows over a device mesh via
 shard_map, scene replicated (SURVEY.md §2 parallelism table). Runs on 8
-virtual CPU devices here; the same code drives a real TPU pod slice.
+virtual CPU devices here; the same code drives several GPUs
+(chip_smoke.py --four runs it on four).
 
-Run: env -u PYTHONPATH python examples/05_multichip.py
+Run: python examples/05_multichip.py
 """
 
 import os
@@ -27,7 +28,7 @@ from tpu_raytracer.utils import save_png
 
 arrays, camera = scene_cube(int(os.environ.get("TRT_EXAMPLE_SIZE", "128")))
 mesh = make_mesh(8)  # 1-D mesh over all devices; image rows = DP axis
-config = RenderConfig(width=camera.width, height=camera.height, backend="bvh")
+config = RenderConfig(width=camera.width, height=camera.height)
 p = camera.ray_params()
 img = np.asarray(render_image_sharded(
     config, mesh, arrays, p["K_inv"], p["D"], p["pose"], p["inv_pose"]

@@ -18,7 +18,7 @@ arrays, camera = scene_cube(96)
 p = camera.ray_params()
 
 config = RenderConfig(
-    width=96, height=96, backend="bvh",
+    width=96, height=96,
     texture_filter="bilinear",  # smooth texture lookup (4-tap lerp)
     ssaa=2,                     # 4 rays/pixel, box-averaged
 )
@@ -28,7 +28,7 @@ img = np.asarray(render_image(
 save_png(img, "/tmp/example_extras.png")
 
 aovs = render_aovs(
-    RenderConfig(width=96, height=96, backend="bvh"),
+    RenderConfig(width=96, height=96),
     arrays, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
 )
 depth = np.asarray(aovs["depth"])

@@ -30,8 +30,7 @@
 namespace {
 
 // Nodes above this size always split (see the forced-split note in
-// Builder::fill); must stay well under the packet kernel's
-// 1023-triangle leaf cap. Mirrors accel/bvh.py FORCE_SPLIT_ABOVE.
+// Builder::fill). Mirrors accel/bvh.py FORCE_SPLIT_ABOVE.
 constexpr int kForceSplitAbove = 512;
 
 struct Box {

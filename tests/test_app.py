@@ -44,7 +44,7 @@ def test_scene_colonnade_is_sponza_class():
 
 
 def test_point_light_end_to_end():
-    """Point lights reach the app surface (VERDICT r2 item 7): a point
+    """Point lights reach the app surface: a point
     light inside the Cornell box lights the scene with hard shadows via
     the public RenderConfig + whitted pipeline (raycast.cu:286-287)."""
     from tpu_raytracer.render.integrators import PointLight

@@ -1,5 +1,5 @@
 """Examples stay runnable: compile-check all, then subprocess-run every
-one end-to-end at TRT_EXAMPLE_SIZE=64 (VERDICT r3 weak #7)."""
+one end-to-end at TRT_EXAMPLE_SIZE=64."""
 
 import os
 import py_compile

@@ -108,31 +108,22 @@ def test_path_tracer_runs_and_converges_sanely():
     assert left[2] / (left[1] + 1e-6) > right[2] / (right[1] + 1e-6)
 
 
-def test_whitted_retile_is_pure_permutation():
-    """retile_secondary sorts the wavefront once after the primary
-    cast and unscatters radiance at the end — per-ray results must be
-    bit-identical to the unsorted path (packet composition changes
-    visit counts, never hits)."""
-    arrays, cam = cornell_scene(mirror=True)
-    o, d = _rays(cam)
-    base = np.asarray(render_whitted(arrays, o, d, max_bounces=2))
-    tiled = np.asarray(
-        render_whitted(arrays, o, d, max_bounces=2, retile_secondary=True)
-    )
-    np.testing.assert_array_equal(tiled, base)
-
-
 def test_occlusion_shadow_cast_matches_nearest(monkeypatch):
-    """ANY-HIT shadow casts (occlusion mode, default on the pallas
-    backend) produce the exact same shadow booleans — whitted images
-    bit-match nearest-hit shadow casts through the packet kernels."""
+    """ANY-HIT shadow casts (the traversal kernel stops a shadow ray at
+    its first accepted hit) produce the exact same shadow booleans —
+    whitted images bit-match nearest-hit shadow casts through the same
+    kernel."""
+    from tpu_raytracer.render import integrators
+    from tpu_raytracer.render.renderer import get_cast_fn
+
     arrays, cam = cornell_scene(mirror=True)
     o, d = _rays(cam)
     on = np.asarray(render_whitted(arrays, o, d, max_bounces=1,
-                                   backend="pallas"))
-    monkeypatch.setenv("TRT_OCC_SHADOW", "0")
+                                   backend="cuda"))
+    monkeypatch.setattr(integrators, "occlusion_cast_fn",
+                        lambda backend: get_cast_fn(backend))
     off = np.asarray(render_whitted(arrays, o, d, max_bounces=1,
-                                    backend="pallas"))
+                                    backend="cuda"))
     np.testing.assert_array_equal(on, off)
 
 
@@ -140,7 +131,7 @@ def test_path_fast_tail_bit_exact(monkeypatch):
     """With no emissive materials (and no NEE) the path tracer's FINAL
     bounce collapses to the ANY-HIT occlusion cast (integrators.py
     fast_tail): the image must bit-match the nearest-hit tail through
-    the real packet kernels — hit-vs-miss is decided by the same
+    the traversal kernel — hit-vs-miss is decided by the same
     intersection predicate either way."""
     arrays, cam = cornell_scene(mirror=True)
     assert not arrays.has_emissive
@@ -148,10 +139,10 @@ def test_path_fast_tail_bit_exact(monkeypatch):
     key = jax.random.PRNGKey(7)
     monkeypatch.setenv("TRT_PATH_TAIL", "0")
     base = np.asarray(render_path_traced(
-        arrays, o, d, key, max_bounces=2, samples=1, backend="pallas"))
+        arrays, o, d, key, max_bounces=2, samples=1, backend="cuda"))
     monkeypatch.setenv("TRT_PATH_TAIL", "1")
     fast = np.asarray(render_path_traced(
-        arrays, o, d, key, max_bounces=2, samples=1, backend="pallas"))
+        arrays, o, d, key, max_bounces=2, samples=1, backend="cuda"))
     np.testing.assert_array_equal(fast, base)
 
 
@@ -170,8 +161,8 @@ def test_path_fast_tail_emissive_gate():
 
 def test_path_sample_batch_statistics_and_exactness(monkeypatch):
     """The default sample-batched wavefront runs all S samples as one
-    (S,)+shape pool (bounce casts pool S-times denser for the coherence
-    sorter); TRT_PATH_SAMPLE_BATCH=0 falls back to the per-sample scan.
+    (S,)+shape pool (S times fewer, wider casts);
+    TRT_PATH_SAMPLE_BATCH=0 falls back to the per-sample scan.
     Different random stream — images agree statistically, not bitwise —
     but within a mode the estimator is deterministic and
     backend-independent: batched bvh == batched brute bit-for-bit."""

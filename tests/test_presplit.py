@@ -1,6 +1,6 @@
 """Triangle pre-splitting (accel/presplit.py): ref invariants, build
 integration (order with duplicates), and render equivalence through the
-real kernels. Pre-splitting changes node membership only — the triangle
+walk and the traversal kernel. Pre-splitting changes node membership only — the triangle
 records any backend tests are identical rows, so depth/hit AOVs are
 bit-equal to the unsplit tree and the brute oracle matches exactly."""
 
@@ -122,20 +122,29 @@ def test_presplit_scene_oracle_and_depth_equality():
                                   np.asarray(a_split["depth"]))
 
 
-def test_adaptive_default_gate():
-    """The presplit default flips on exactly for meshes whose triangle
-    records ALONE overflow the resident kernel's VMEM budget (those can
-    only route to the HBM-paged kernels, where presplit is a measured
-    +19-32%; PERF_LOG r5). Resident-capable sizes stay presplit-free so
-    ref duplication can never change a scene's routing."""
-    from tpu_raytracer.kernels.traversal import (
-        REC_PER_ROW, TILE_L, VMEM_SCENE_BUDGET,
-    )
-    from tpu_raytracer.scene.mesh import _paged_only_size
+def test_presplit_is_opt_in(monkeypatch):
+    """Presplit runs only when TRT_BVH_PRESPLIT asks for it: a default
+    build of the colonnade keeps one ref per triangle."""
+    monkeypatch.delenv("TRT_BVH_PRESPLIT", raising=False)
+    v0, _, _ = _colonnade()
+    assert _compile_scene(None).tri_v0.shape[0] == len(v0)
 
-    threshold_rows = VMEM_SCENE_BUDGET // (TILE_L * 4)
-    threshold_tris = (threshold_rows - 1) * REC_PER_ROW
-    assert not _paged_only_size(82_000)  # flagship blob: resident
-    assert not _paged_only_size(threshold_tris)
-    assert _paged_only_size(threshold_tris + REC_PER_ROW)
-    assert _paged_only_size(1_316_744)  # the 1.32M paged colonnade
+
+def test_presplit_tree_kernel_matches_brute():
+    """The traversal kernel over a tree with duplicated refs agrees with
+    the brute oracle on the same compiled arrays."""
+    import jax
+
+    from tpu_raytracer.oracle import (
+        brute_hits, camera_rays, hit_agreement, incidence_cos,
+    )
+    from tpu_raytracer.render import Camera
+    from tpu_raytracer.render.renderer import get_cast_fn
+
+    split = _compile_scene("0.3")
+    cam = Camera.looking(48, 48, fov_deg=65.0, pose=[1.0, -1.5, 1.2, 0, 0, 0])
+    o, d = camera_rays(cam)
+    want = brute_hits(split, o, d)
+    got = jax.jit(get_cast_fn("cuda"))(split, o, d)
+    result = hit_agreement(got, want, cos=incidence_cos(split, o, d, want))
+    assert result["ok"], result

@@ -4,6 +4,7 @@ brute-force-vs-BVH oracle (SURVEY.md §4 item 5), and shading semantics."""
 import numpy as np
 import pytest
 
+from tpu_raytracer.oracle import cube_scene, sphere_scene
 from tpu_raytracer.render import Camera, RenderConfig, render
 from tpu_raytracer.render.renderer import cast_rays_brute, cast_rays_bvh
 from tpu_raytracer.render.shade import SKY_COLOR
@@ -15,34 +16,6 @@ from tpu_raytracer.scene import (
     objloader,
     procgen,
 )
-
-
-def cube_scene(textured=False):
-    """BASELINE config 1: one cube, camera 4 units back (y-forward)."""
-    scene = Scene()
-    if textured:
-        mat = Material()
-        mat.set_texture(procgen.checkerboard_texture(64, 8))
-        scene.add_material(mat)
-    else:
-        scene.add_material(Material(albedo=(0.1, 0.2, 0.9)))
-    scene.add_mesh(objloader.loads(procgen.cube_obj()))
-    scene.add_mesh_instance(MeshInstance(0, 0))
-    cam = Camera.looking(64, 64, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
-    return scene.compile(), cam
-
-
-def sphere_scene(subdiv=3):
-    scene = Scene()
-    scene.add_material(Material(albedo=(0.8, 0.3, 0.2)))
-    v0, v1, v2 = procgen.icosphere(subdiv)
-    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2))
-    inst = MeshInstance(0, 0)
-    inst.pose = np.array([0, 0, 0, 0.3, 0.2, 0.1], np.float32)
-    inst.scale = np.array([1.0, 1.3, 0.8], np.float32)
-    scene.add_mesh_instance(inst)
-    cam = Camera.looking(32, 32, fov_deg=40.0, pose=[0.2, -3.5, 0.1, 0, 0, 0])
-    return scene.compile(), cam
 
 
 def test_cube_render_hits_center_misses_corners():

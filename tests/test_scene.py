@@ -56,20 +56,22 @@ def test_uv_attachment():
 def test_scene_compiles_with_offsets():
     scene = build_two_instance_scene()
     arrays = scene.compile()
-    # 12-tri cube pads to 16, 2-tri board pads to 8 (8-aligned leaf
-    # blocks for the packet kernel's row-per-quad leaf loop)
-    assert arrays.num_triangles == 24
+    # 12-tri cube + 2-tri board, concatenated without padding
+    assert arrays.num_triangles == 14
     assert arrays.num_instances == 2
-    # every leaf block starts on a record-row boundary
-    leaf = np.asarray(arrays.node_child_a) < 0
-    assert (np.asarray(arrays.node_leaf_start)[leaf] % 8 == 0).all()
-    # padding triangles are degenerate (zero normal -> never hit)
+    # every triangle is a real one (unit normal -> hittable)
     normals = np.asarray(arrays.tri_normal)
-    assert (normals[12:16] == 0).all() and (normals[16 + 2:] == 0).all()
+    np.testing.assert_allclose(np.linalg.norm(normals, axis=1), 1.0,
+                               rtol=1e-6)
     # mesh 1's root node references offset nodes/triangles
     assert int(arrays.mesh_root[1]) == len(scene.meshes[0].bvh.child_a)
     tri_mesh = np.asarray(arrays.tri_mesh)
-    assert (tri_mesh[:16] == 0).all() and (tri_mesh[16:] == 1).all()
+    assert (tri_mesh[:12] == 0).all() and (tri_mesh[12:] == 1).all()
+    # mesh 1's leaves start past mesh 0's triangles
+    leaf = np.asarray(arrays.node_child_a) < 0
+    starts = np.asarray(arrays.node_leaf_start)
+    root1 = int(arrays.mesh_root[1])
+    assert (starts[root1:][leaf[root1:]] >= 12).all()
     # texture atlas packed
     assert int(arrays.mat_tex_start[1]) == 0
     assert int(arrays.mat_tex_w[1]) == 64
@@ -162,7 +164,7 @@ def test_objloader_missing_file_raises():
 
 def test_objloader_mixed_face_tokens_degrade_untextured():
     """A face mixing 'v/t' and bare 'v' tokens must parse as an
-    un-textured face instead of mis-indexing the fan (ADVICE r1)."""
+    un-textured face instead of mis-indexing the fan."""
     text = "\n".join([
         "v 0 0 0", "v 1 0 0", "v 1 1 0", "v 0 1 0",
         "vt 0 0", "vt 1 0", "vt 1 1",

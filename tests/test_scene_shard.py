@@ -76,7 +76,7 @@ def test_sharded_cast_matches_full_scene():
     )
 
     flat, _ = scene.flattened()
-    full = flat.compile(auto_page=False)
+    full = flat.compile()
     ref = cast_rays_bvh(full, o, d)
     np.testing.assert_array_equal(np.asarray(got4.t), np.asarray(ref.t))
     assert (np.asarray(got4.t) < 3e38).sum() > 200  # real hits
@@ -108,7 +108,7 @@ def test_sharded_render_matches_full_scene():
     # shading chain; only coplanar-edge tie pixels may flip (different
     # BVH order), so allow a tiny mismatch fraction
     flat, tri_mat = scene.flattened()
-    full = flat.compile(auto_page=False, _tri_mat=tri_mat)
+    full = flat.compile(_tri_mat=tri_mat)
     ref = np.asarray(render_image(
         cfg, full, p["K_inv"], p["D"], p["pose"], p["inv_pose"]
     ))
@@ -136,7 +136,7 @@ def test_sharded_render_point_lights():
         cfg, mesh, stacked, p["K_inv"], p["D"], p["pose"], p["inv_pose"]
     ))
     flat, tri_mat = scene.flattened()
-    full = flat.compile(auto_page=False, _tri_mat=tri_mat)
+    full = flat.compile(_tri_mat=tri_mat)
     ref = np.asarray(render_image(
         cfg, full, p["K_inv"], p["D"], p["pose"], p["inv_pose"]
     ))
@@ -152,29 +152,22 @@ def test_sharded_render_point_lights():
 
 
 @needs4
-def test_sharded_cast_pallas_backend():
-    """The flagship Pallas kernel family runs INSIDE the shard body
-    (VERDICT r4 item 7): shard_compile now stacks per-chunk wide4
-    tables (padded, static-unified), so backend='pallas' (interpret on
-    CPU) routes through the dual-wide kernel per shard. Distances must
-    be bit-equal to the bvh-walk sharded cast; ids may differ only on
-    exact t-ties."""
+def test_sharded_cast_kernel_backend():
+    """The traversal kernel runs INSIDE the shard body: each device
+    casts against its chunk through the FFI target, and the combined
+    distances match the bvh-walk sharded cast to the oracle's
+    tolerance; ids may differ only on exact t-ties."""
     scene, cam = _scene()
     o, d = _rays(cam)
     mesh = make_mesh(4, axis="scene")
     stacked = shard_compile(scene, 4)
-    assert stacked.wide4 is not None  # tables survived stacking
-    got_p = cast_rays_scene_sharded(mesh, stacked, o, d, backend="pallas")
+    got_k = cast_rays_scene_sharded(mesh, stacked, o, d, backend="cuda")
     got_b = cast_rays_scene_sharded(mesh, stacked, o, d, backend="bvh")
-    tp, tb = np.asarray(got_p.t), np.asarray(got_b.t)
-    # CPU INTERPRET contracts FMAs differently from the XLA walk
-    # (ulp-level t drift, the standing interpret caveat — the
-    # same-device TPU oracle is bit-exact, tests/test_pallas_tpu.py);
-    # miss/hit pattern must agree exactly
-    np.testing.assert_array_equal(tp >= 3e38, tb >= 3e38)
-    np.testing.assert_allclose(np.where(tp < 3e38, tp, 0.0),
+    tk, tb = np.asarray(got_k.t), np.asarray(got_b.t)
+    np.testing.assert_array_equal(tk >= 3e38, tb >= 3e38)
+    np.testing.assert_allclose(np.where(tk < 3e38, tk, 0.0),
                                np.where(tb < 3e38, tb, 0.0), rtol=1e-5)
-    flips = (np.asarray(got_p.tri) != np.asarray(got_b.tri)).mean()
+    flips = (np.asarray(got_k.tri) != np.asarray(got_b.tri)).mean()
     assert flips < 0.02, flips
 
 
@@ -208,7 +201,7 @@ def test_whitted_scene_sharded_matches_full_scene():
     np.testing.assert_array_equal(img, img1)
 
     flat, tri_mat = scene.flattened()
-    full = flat.compile(auto_page=False, _tri_mat=tri_mat)
+    full = flat.compile(_tri_mat=tri_mat)
     ref = np.asarray(render_image_whitted(
         cfg, full, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
         max_bounces=1,
@@ -260,7 +253,7 @@ def test_path_scene_sharded_matches_full_scene():
     np.testing.assert_array_equal(img, img1)
 
     flat, tri_mat = scene.flattened()
-    full = flat.compile(auto_page=False, _tri_mat=tri_mat)
+    full = flat.compile(_tri_mat=tri_mat)
     ref = np.asarray(render_image_path_traced(
         cfg, full, p["K_inv"], p["D"], p["pose"], p["inv_pose"], key,
         max_bounces=2, samples=2,
@@ -289,7 +282,7 @@ def test_path_scene_sharded_fast_tail_skyonly():
         key, max_bounces=2, samples=2,
     ))
     flat, tri_mat = scene.flattened()
-    full = flat.compile(auto_page=False, _tri_mat=tri_mat)
+    full = flat.compile(_tri_mat=tri_mat)
     ref = np.asarray(render_image_path_traced(
         cfg, full, p["K_inv"], p["D"], p["pose"], p["inv_pose"], key,
         max_bounces=2, samples=2,

@@ -1,8 +1,8 @@
 """SAH-style BVH construction, numpy-vectorized (host side).
 
 Functional re-implementation of the reference builder
-(reference: CudaRaytracer/BVHTree.hpp:59-361) with a TPU-friendly flat
-output format:
+(reference: CudaRaytracer/BVHTree.hpp:59-361) with a flat array output
+format:
 
   * Node boxes are grown from triangle *vertices*; splits partition by
     triangle *centroid* (BVHTree.hpp:203-292).
@@ -13,10 +13,11 @@ output format:
   * Axis selection uses the reference's exact if/elif/else chain
     (BVHTree.hpp:229-243) including its tie behavior.
   * Split accepted only if best_cost < cost(node) (BVHTree.hpp:246-247);
-    recursion stops at depth >= max_depth (default 48; the reference
-    call site uses 32, MeshPrimitive.cpp:54, but deep grid scenes like
-    the 627k-tri colonnade need ~33-40 — the kernel stack is sized to
-    match), at <=1 triangle, or on a one-sided partition
+    recursion stops at depth >= max_depth (default and ceiling
+    MAX_BVH_DEPTH = 48; the reference call site uses 32,
+    MeshPrimitive.cpp:54, but deep grid scenes like the 627k-tri
+    colonnade need ~33-40 — every traversal stack is sized from
+    MAX_BVH_DEPTH), at <=1 triangle, or on a one-sided partition
     (BVHTree.hpp:279-280).
   * Children are appended depth-first (left subtree first), so node 0 is
     always the root (BVHTree.hpp:283-289).
@@ -24,7 +25,7 @@ output format:
 Unlike the reference's per-leaf cudaMalloc'd index lists
 (BVHTree.hpp:103-111), triangles are REORDERED so every leaf owns a
 contiguous [start, start+count) range of the triangle array — the flat
-arrays below upload to the TPU as-is and leaves become dense slices.
+arrays below upload to the device as-is and leaves become dense slices.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ import dataclasses
 import numpy as np
 
 _INF = np.float32(np.inf)
+
+# Deepest node any builder makes (the root has depth 1). The traversal
+# stacks (render/renderer.STACK_SIZE, native/traverse.h kMaxDepth) are
+# sized from it, so MeshPrimitive rejects a deeper max_depth.
+MAX_BVH_DEPTH = 48
 
 
 @dataclasses.dataclass
@@ -138,8 +144,7 @@ def sah_cost(bvh: BVHArrays, c_trav: float = 1.0, c_isect: float = 1.0) -> float
     )
 
 
-# Nodes above this size always split (see the forced-split note in
-# fill); must stay well under the packet kernel's 1023-triangle leaf cap
+# Nodes above this size always split (see the forced-split note in fill)
 FORCE_SPLIT_ABOVE = 512
 
 
@@ -147,7 +152,7 @@ def build_bvh(
     v0: np.ndarray,
     v1: np.ndarray,
     v2: np.ndarray,
-    max_depth: int = 48,
+    max_depth: int = MAX_BVH_DEPTH,
     tests_per_axis: int = 5,
     min_leaf_size: int = 1,
     mode: str = "reference",
@@ -157,7 +162,7 @@ def build_bvh(
 
     ``min_leaf_size``: stop splitting below this count (the reference
     stops at 1, BVHTree.hpp:214; larger values trade node visits for
-    triangle tests, a packet-traversal tuning knob).
+    triangle tests, a traversal tuning knob).
 
     ``refs``: optional ``(ref_tri, ref_min, ref_max)`` from
     ``presplit.presplit_refs`` — the build then partitions split
@@ -169,8 +174,8 @@ def build_bvh(
     ``mode``: "reference" reproduces the reference's 5-candidate
     uniform split search exactly (BVHTree.hpp:294-361); "sweep" costs
     EVERY centroid-sorted split position per axis (exact SAH sweep) —
-    a beyond-reference quality mode producing measurably cheaper trees
-    for the pop-latency-bound packet kernels. Same cost model and
+    a beyond-reference quality mode producing cheaper trees (lower SAH
+    cost, fewer expected node visits). Same cost model and
     termination rules. A tree change can only affect the image at
     EXACT t-ties (shared mesh edges, where traversal order breaks the
     tie) — sub-pixel-rare on primary rays, but a path tracer amplifies
@@ -252,7 +257,7 @@ def build_bvh(
         # locks on uniform thin slabs — splitting a slab in half gives
         # EXACTLY equal half-area*count — which at Sponza scale (e.g.
         # the 1M-tri colonnade, one z-band spanning every column)
-        # produces leaves far beyond the kernel's 10-bit count cap.
+        # produces leaves of many thousands of triangles.
         # Nodes above FORCE_SPLIT_ABOVE split regardless, falling back
         # to a stable median split on the longest axis when the SAH
         # candidate is one-sided.

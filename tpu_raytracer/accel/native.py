@@ -1,8 +1,8 @@
 """ctypes binding to the native C++ BVH builder (native/bvh_builder.cpp).
 
-The builder .so is compiled on first use with the repo Makefile (g++ is
-part of the toolchain; pybind11 is not, so the ABI is plain C via
-ctypes). Construction semantics are bit-identical to the numpy builder
+The builder .so is compiled on first use with native/Makefile into
+native/build/ (g++ is part of the toolchain; pybind11 is not, so the
+ABI is plain C via ctypes). Construction semantics are bit-identical to the numpy builder
 (accel/bvh.py) — tested — so the two are interchangeable; the native
 path exists for Sponza-class meshes (250k+ triangles) where per-node
 Python overhead dominates the build (SURVEY.md §7 hard part 5).
@@ -11,15 +11,12 @@ Python overhead dominates the build (SURVEY.md §7 hard part 5).
 from __future__ import annotations
 
 import ctypes
-import pathlib
-import subprocess
 
 import numpy as np
 
+from ..utils.native import build_library
 from .bvh import BVHArrays
 
-_NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libtrt_bvh.so"
 _lib = None
 _lib_failed = False
 
@@ -29,12 +26,7 @@ def _load() -> ctypes.CDLL | None:
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not _LIB_PATH.exists():
-            subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR)], check=True,
-                capture_output=True, timeout=120,
-            )
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib = ctypes.CDLL(str(build_library("libtrt_bvh.so")))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         lib.trt_build_bvh.restype = ctypes.c_int32
@@ -43,14 +35,12 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             f32p, f32p, i32p, i32p, i32p, i32p, i32p,
         ]
-        # sweep entry point (older cached .so builds may predate it)
-        if hasattr(lib, "trt_build_bvh_sweep"):
-            lib.trt_build_bvh_sweep.restype = ctypes.c_int32
-            lib.trt_build_bvh_sweep.argtypes = [
-                f32p, f32p, f32p,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                f32p, f32p, i32p, i32p, i32p, i32p, i32p,
-            ]
+        lib.trt_build_bvh_sweep.restype = ctypes.c_int32
+        lib.trt_build_bvh_sweep.argtypes = [
+            f32p, f32p, f32p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            f32p, f32p, i32p, i32p, i32p, i32p, i32p,
+        ]
         _lib = lib
     except Exception:
         _lib_failed = True
@@ -78,9 +68,6 @@ def build_bvh_native(
     lib = _load()
     if lib is None:
         raise RuntimeError("native BVH builder unavailable")
-    if mode == "sweep" and not hasattr(lib, "trt_build_bvh_sweep"):
-        raise RuntimeError("native builder .so predates sweep mode "
-                           "(make -C native clean all)")
     v0 = np.ascontiguousarray(v0, np.float32).reshape(-1, 3)
     v1 = np.ascontiguousarray(v1, np.float32).reshape(-1, 3)
     v2 = np.ascontiguousarray(v2, np.float32).reshape(-1, 3)

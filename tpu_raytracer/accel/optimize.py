@@ -4,16 +4,13 @@ Beyond-reference tree-quality mode, after Bittner et al. 2013 ("Fast
 Insertion-Based Optimization of Bounding Volume Hierarchies"): remove
 high-inefficiency internal nodes and re-insert their two child
 subtrees at the globally best position found by a branch-and-bound
-search over the whole tree. The packet kernels are NODE-UNION-bound on
-incoherent (bounce) rays — measured r4: tree quality is the one lever
-that moves that wall (sweep-SAH: colonnade SAH -37% -> path fps
-+13.4%) — so further SAH reduction translates directly.
+search over the whole tree. A lower SAH cost means fewer expected node
+visits per ray, most of all for incoherent (bounce) rays.
 
 Operates purely on the flat ``BVHArrays``: leaves keep their triangle
 sets; only internal topology and boxes change. The output is
-re-emitted in DFS preorder with leaf-contiguous triangle ranges (the
-layout invariant ``accel/wide.py`` and ``accel/paging.py`` exploit),
-with ``order`` composed accordingly, so the optimized tree is a
+re-emitted in DFS preorder with leaf-contiguous triangle ranges, with
+``order`` composed accordingly, so the optimized tree is a
 drop-in replacement anywhere a built tree is.
 
 The reference has no optimization pass (its builder is the one-shot
@@ -27,7 +24,7 @@ import heapq
 
 import numpy as np
 
-from .bvh import BVHArrays, _half_area
+from .bvh import MAX_BVH_DEPTH, BVHArrays, _half_area
 
 
 def _parents(child_a, child_b):
@@ -63,7 +60,7 @@ def optimize_bvh(
     bvh: BVHArrays,
     rounds: int = 2,
     frac: float = 1.0,
-    max_depth: int = 48,
+    max_depth: int = MAX_BVH_DEPTH,
 ) -> BVHArrays:
     """Reinsertion-optimize a built BVH; returns a new BVHArrays.
 

@@ -5,9 +5,8 @@ Beyond-reference quality mode in the spirit of Ernst & Greiner 2007
 ("Early Split Clipping"): a triangle whose AABB is much larger than its
 neighbours' (a floor slab under a quarter-million small triangles, a
 Cornell wall) forces every node on its root-to-leaf path to span the
-whole scene, polluting the traversed node union for EVERY ray — the
-exact cost the packet kernels are bound by on incoherent bounce casts
-(PERF_LOG r4: tree quality moves that wall nearly 1:1). An object-split
+whole scene, so EVERY ray that crosses that region visits them — a
+cost felt most by incoherent bounce casts. An object-split
 builder cannot fix this (the reference's included, BVHTree.hpp:294-361:
 it partitions whole triangles, so some leaf always owns the giant box),
 and neither can reinsertion optimization — the box is huge wherever the

@@ -11,10 +11,7 @@ write out.png with the FPS overlay (kernel.cu:30-43).
 from __future__ import annotations
 
 import argparse
-import os
-import sys
 import time
-import warnings
 
 import jax
 import numpy as np
@@ -22,6 +19,7 @@ import numpy as np
 from ..render import Camera, RenderConfig
 from ..render.camera import reference_calibration
 from ..render.pipeline import render_image
+from ..render.renderer import BACKENDS, resolve_backend
 from ..render.shade import DEFAULT_LIGHT_DIRECTION
 from ..scene import Material, MeshInstance, MeshPrimitive, Scene, objloader, procgen
 from ..utils import overlay_fps, save_png
@@ -96,24 +94,7 @@ def run(
     the timed loop (browser window + mouse orbit + WASD; app/web.py —
     the reference's disabled cv::imshow surface, kernel.cu:262-263).
     """
-    if mode == "path":
-        # Measured r4: 1024-ray packets + the sample-batched wavefront
-        # beat the 4096 primary-tuned default on bounce-dominated
-        # frames (PERF_LOG "sample-batched path wavefront"). Packet
-        # geometry is read at kernels import time, so this only works
-        # for the first render in a process; warn programmatic callers
-        # who imported the kernels already.
-        if "tpu_raytracer.kernels.traversal" not in sys.modules:
-            os.environ.setdefault("TRT_PIX_H", "16")
-        elif os.environ.get("TRT_PIX_H") != "16":
-            warnings.warn(
-                "run(mode='path'): kernels already imported with the "
-                "primary-tuned packet geometry; set TRT_PIX_H=16 before "
-                "the first kernel import for the tuned path-mode packets",
-                stacklevel=2,
-            )
-    if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "bvh"
+    backend = resolve_backend(backend)
 
     if scene_name == "demo":
         scene = build_demo_scene()
@@ -138,11 +119,6 @@ def run(
         if calib:
             K, D = reference_calibration(width, height)
             camera = Camera(width, height, K, D, pose=camera.pose)
-    if backend in ("paged", "paged_major"):
-        # force-page small scenes too; big scenes already carry tables
-        # (Scene.compile auto-attaches beyond the VMEM budget)
-        arrays = arrays.with_paging()
-
     from ..render.pipeline import render_image_path_traced, render_image_whitted
 
     from ..render.integrators import PointLight
@@ -252,7 +228,9 @@ def main():
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1088)
     ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--backend", default=None, choices=["brute", "bvh", "pallas", "paged", "paged_major"])
+    ap.add_argument("--backend", default=None, choices=list(BACKENDS),
+                    help="traversal backend (default: cuda on a GPU, "
+                         "bvh elsewhere)")
     ap.add_argument("--lighting", default="flat",
                     choices=["flat", "lambert", "lambert_shadow", "blinn_phong"])
     ap.add_argument("--scene", default="demo",
@@ -332,10 +310,8 @@ def main():
     args = ap.parse_args()
     from ..utils import enable_compilation_cache
 
-    enable_compilation_cache()  # repeat app runs skip the minutes-long
-    # TPU compiles (utils/compile_cache.py; TRT_COMPILE_CACHE=0 opts out)
-    # (path-mode packet geometry is applied inside run(); an explicit
-    # TRT_PIX_H env always wins.)
+    enable_compilation_cache()  # repeat app runs skip recompiling
+    # (utils/compile_cache.py; TRT_COMPILE_CACHE=0 opts out)
     plights = tuple(
         tuple(float(v) for v in spec.split(","))
         for spec in args.point_light

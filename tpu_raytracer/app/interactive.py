@@ -2,8 +2,8 @@
 disabled (cv::imshow window + mouse orbit, kernel.cu:262-263/113-139;
 WASD fly, kernel.cu:51-104), done terminal-native.
 
-No OpenCV window exists on a TPU host, so the display is the terminal
-itself: frames are downsampled and drawn as ANSI truecolor half-blocks
+No OpenCV window exists on a headless render host, so the display is
+the terminal itself: frames are downsampled and drawn as ANSI truecolor half-blocks
 (two pixels per character cell), which works over any ssh session. The
 camera pose is a per-frame runtime argument to the jitted renderer
 (Camera.cu:29-31 analog), so keystrokes never trigger recompilation —
@@ -129,8 +129,9 @@ def run_interactive(
     from .scenes import SCENES
     from ..render import Camera
 
-    if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "bvh"
+    from ..render.renderer import resolve_backend
+
+    backend = resolve_backend(backend)
     if scene_name == "demo":
         arrays = build_demo_scene().compile()
         camera = Camera.looking(width, height, fov_deg=60.0,
@@ -238,7 +239,7 @@ def main():
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--backend", default=None,
-                    choices=["brute", "bvh", "pallas", "paged"])
+                    choices=["brute", "bvh", "cuda"])
     ap.add_argument("--out", default="interactive.png")
     ap.add_argument("--mode", default="primary",
                     choices=["primary", "path"],

@@ -111,9 +111,8 @@ def scene_instances(width: int = 512, height: int = 512,
 
 def scene_instances16(width: int = 512, height: int = 512, n: int = 16,
                       flatten: bool = False):
-    """16 posed/scaled instances in a grid — the TLAS benchmark scene
-    (VERDICT r2 item 6: a dynamic multi-instance scene must render
-    within ~2x of its flattened-static throughput). Instances are
+    """16 posed/scaled instances in a grid — the many-instances scene,
+    measured beside its flattened-static bake (``flatten``). Instances are
     'dynamic' in the sense that per-frame pose updates (update_instance)
     keep working — unlike ``flatten``, which bakes them."""
     scene = Scene()

@@ -2,8 +2,8 @@
 
 The reference scaffolds (and disables) a cv::imshow window with
 mouse-orbit and WASD fly controls (kernel.cu:262-263, 113-139,
-51-104). A TPU host has no X display, so the window here is a browser
-tab served straight from the render host over plain stdlib
+51-104). A headless render host has no X display, so the window here
+is a browser tab served straight from the render host over plain stdlib
 ``http.server`` — no OpenCV GUI, no extra dependencies:
 
   * dragging the image orbits the camera with the reference's exact
@@ -105,9 +105,8 @@ class WebViewer:
         self.ao_radius = float(ao_radius)
         self._lock = threading.Lock()
         # serialize renders: ThreadingHTTPServer handles requests on
-        # threads, and concurrent jit traces in one process are not
-        # safe (kernels/family.py single-trace assumption; and there
-        # is one chip anyway)
+        # threads; one render at a time keeps one device's work in
+        # order and the pose/accumulator state consistent
         self._render_lock = threading.Lock()
         self._pose = np.array(camera.pose, np.float32)
         self._pose_version = 0

@@ -1,4 +1,4 @@
-"""6-DoF pose ("lre") library — TPU-native counterpart of the reference's
+"""6-DoF pose ("lre") library — counterpart of the reference's
 transform stack (reference: CudaRaytracer/transforms.hpp:8-299).
 
 A pose is a plain float32 array of shape ``[..., 6]`` holding

@@ -1,10 +1,10 @@
-"""Vector math primitives for the TPU ray tracer.
+"""Vector math primitives for the ray tracer.
 
-TPU-native counterpart of the reference's float3 helper library
+Counterpart of the reference's float3 helper library
 (reference: CudaRaytracer/utils.hpp:12-160). Everything here operates on
 jnp arrays whose last axis is the vector axis (shape ``[..., 3]`` /
-``[..., 2]``), so a single call vectorizes over an entire ray batch on
-the VPU — there is no scalar path.
+``[..., 2]``), so a single call vectorizes over an entire ray batch —
+there is no scalar path.
 
 Conventions:
   * dtype is float32 throughout (geometry needs the mantissa).
@@ -45,7 +45,7 @@ def q_rsqrt(x: jax.Array) -> jax.Array:
     trick — one Newton iteration off the 0x5f3759df magic constant
     (utils.hpp:12-27). Its output differs from a true rsqrt in the 3rd
     decimal, which is visible in pixel-exact comparisons, so we provide
-    the identical computation (int32 bitcast is free on the VPU).
+    the identical computation (the int32 bitcast is free).
     """
     x = jnp.asarray(x, jnp.float32)
     i = jax.lax.bitcast_convert_type(x, jnp.int32)
@@ -75,7 +75,7 @@ def apply_mat3(m: jax.Array, v: jax.Array) -> jax.Array:
     Mirrors ``apply_matrix(float3x3, float3)`` (utils.hpp:134-140).
     ``m`` is ``[..., 3, 3]``, ``v`` is ``[..., 3]``. Written as explicit
     multiply-adds (not dot_general) so precision never silently degrades
-    to bf16 under the TPU default matmul precision.
+    to bf16 or TF32 under a backend's default matmul precision.
     """
     return jnp.sum(m * v[..., None, :], axis=-1)
 

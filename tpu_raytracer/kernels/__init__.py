@@ -1,3 +1,3 @@
-from .traversal import cast_rays_pallas
+from .traverse import cast_rays_kernel
 
-__all__ = ["cast_rays_pallas"]
+__all__ = ["cast_rays_kernel"]

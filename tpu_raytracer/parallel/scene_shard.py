@@ -8,16 +8,14 @@ outgrows one chip's HBM. This module shards the GEOMETRY instead:
     static bake the whitted benchmarks use) and its merged, BVH-ordered
     triangle soup is split into ``n`` contiguous chunks (leaf order is
     spatially coherent, so chunks are compact, not interleaved);
-  * each chunk compiles into its own SceneArrays (own BVH **and its
-    own wide4 tables**, padded + static-unified so the stacked pytree
-    is treedef-uniform — the flagship dual-wide Pallas kernel runs
-    inside the shard body, not just the XLA walk) and the n pytrees
-    are stacked on a leading shard axis — materials/atlas are
-    replicated (identical rows), only geometry diverges;
-  * every chip casts ALL rays against ITS chunk (any resident backend
-    including ``pallas``), then one lexicographic (t, global-tri)
-    min-reduction over the mesh axis — ``jax.lax.pmin`` riding ICI —
-    crowns the scene-wide nearest hit. Shading runs on the combined
+  * each chunk compiles into its own SceneArrays (own BVH), padded so
+    the stacked pytree is treedef-uniform, and the n pytrees are
+    stacked on a leading shard axis — materials/atlas are replicated
+    (identical rows), only geometry diverges;
+  * every device casts ALL rays against ITS chunk (any backend,
+    the traversal kernel included), then one lexicographic
+    (t, global-tri) min-reduction over the mesh axis — ``jax.lax.pmin``
+    — crowns the scene-wide nearest hit. Shading runs on the combined
     attributes (each field a winner-masked ``psum``), and hard-shadow
     occlusion is the pmin of the per-shard any-hit casts — point
     lights ride pmin-combined NEAREST casts — so every lighting mode
@@ -29,21 +27,17 @@ outgrows one chip's HBM. This module shards the GEOMETRY instead:
 Combine semantics: the winner is the smallest t, ties broken by the
 smaller GLOBAL triangle id (``shard * stride + local-BVH-index``) —
 deterministic and unique because the chunks are disjoint. A cross-shard
-EXACT-t tie may pick a different winner than the single-scene kernel's
-traversal order would (the standing cross-leaf tie caveat,
-kernels/paged_major.py NOTE); scenes with unique nearest hits — all of
-them, in practice — render identically.
+EXACT-t tie may pick a different winner than the single-scene walk's
+traversal order would; scenes with unique nearest hits — all of them,
+in practice — render identically.
 
 The reference has no distributed mode at all (single GPU, everything
-resident — Scene.cpp:41-64); this is the beyond-reference capability
-VERDICT r3 marked as the one missing §2 row. Like sharding.py, the
-mesh here is virtual-CPU-testable and the same code drives a real TPU
-pod slice.
+resident — Scene.cpp:41-64); this mode goes beyond it. Like sharding.py, the mesh here is virtual-CPU-testable
+and the same code drives several GPUs.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import jax
@@ -99,27 +93,9 @@ def shard_compile(scene, n_shards: int, **compile_kw) -> SceneArrays:
         chunk.add_mesh_instance(MeshInstance(0, 0))
         # per-triangle materials survive the flatten (aligned to the
         # chunk BVH's reorder, like Scene.compile(flatten_static=True))
-        arrays = chunk.compile(
-            auto_page=False, _tri_mat=tri_mat[sl][mp.bvh.order],
-            **compile_kw,
-        )
-        # wide4 tables stay (the flagship dual-wide pallas kernel runs
-        # INSIDE the shard body; VERDICT r4 item 7) — their static
-        # max_leaf is unified below so the treedefs stack. tlas is
-        # irrelevant (each chunk is one instance) and paged tables are
-        # dropped: chunks must fit the resident kernel's VMEM budget —
-        # scale by adding shards, which is the point of this mode.
-        if arrays.wide4 is None:
-            arrays = arrays.with_wide4()
-        shards.append(dataclasses.replace(arrays, tlas=None, paged=None))
-
-    max_leaf = max(s.wide4.max_leaf for s in shards)
-    shards = [
-        dataclasses.replace(
-            s, wide4=dataclasses.replace(s.wide4, max_leaf=max_leaf)
-        )
-        for s in shards
-    ]
+        shards.append(chunk.compile(
+            _tri_mat=tri_mat[sl][mp.bvh.order], **compile_kw,
+        ))
 
     # pad every array leaf to the max shape per field, then stack
     leaves_list = [jax.tree.leaves(a) for a in shards]
@@ -230,7 +206,7 @@ def _combined_cast_attrs(local, sid, stride, axis, cast, config):
 
 def cast_rays_scene_sharded(
     mesh: Mesh, scene_stacked: SceneArrays, origin, directions,
-    backend: str = "bvh",
+    backend: str | None = None,
 ) -> Hit:
     """Scene-wide nearest hit with the geometry sharded over ``mesh``.
     Returns GLOBAL triangle ids (shard * stride + local)."""
@@ -325,10 +301,10 @@ def render_image_whitted_scene_sharded(
     max_bounces: int = 2,
     shadows: bool = True,
 ) -> jax.Array:
-    """Whitted reflections with the GEOMETRY sharded (VERDICT r4 item
-    7): every bounce's nearest-hit cast runs against the local chunk
-    and is lex-min combined over ICI — so reflection chains see the
-    whole scene while each chip holds 1/n of it. Directional shadows
+    """Whitted reflections with the GEOMETRY sharded: every bounce's
+    nearest-hit cast runs against the local chunk and is lex-min
+    combined over the mesh axis — so reflection chains see the whole
+    scene while each chip holds 1/n of it. Directional shadows
     are pmin-combined any-hit casts; POINT lights ride pmin-combined
     nearest casts — their query only reads the combined t. The
     estimator IS integrators.render_whitted, run inside the shard body
@@ -397,7 +373,7 @@ def render_image_path_scene_sharded(
     the realization of the reference's curand scaffolding,
     raycast.cu:190-193) runs inside the shard body through its
     ``_sharded_hooks`` seam, so every nearest-hit/NEE/fast-tail cast is
-    the COMBINED cast (local chunk + lex-min over ICI) and the
+    the COMBINED cast (local chunk + lex-min over the mesh axis) and the
     estimator math is the single-chip integrator by construction.
     Sampling keys are replicated, so every chip draws the identical
     random stream and radiance stays replicated without a gather.
@@ -424,7 +400,7 @@ def render_image_path_scene_sharded(
             local, o0, d0, k,
             max_bounces=max_bounces, samples=samples,
             backend=config.backend, exact=config.exact_math,
-            sort_secondary=False, tex_filter=config.texture_filter,
+            tex_filter=config.texture_filter,
             light_direction=(config.light_direction
                              if config.path_lights else None),
             point_lights=(config.point_lights

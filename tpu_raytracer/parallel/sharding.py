@@ -1,9 +1,8 @@
 """Multi-chip rendering: data-parallel image tiling over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2 parallelism table);
-its only parallel axis is pixels. The TPU-native scale-out keeps that
-axis: the pixel-ray batch is sharded across a 1-D ``Mesh`` via
-``shard_map`` (image rows in PIX_TILE blocks), the flat scene arrays are
+its only parallel axis is pixels. The scale-out here keeps that axis: the pixel-ray batch is sharded across a 1-D ``Mesh`` via
+``shard_map`` (contiguous blocks of image rows), the flat scene arrays are
 replicated to every chip, and each chip runs the full raygen -> traverse
 -> shade pipeline on its shard. No collectives are needed in the render
 loop — assembly happens when the sharded uint8 image is fetched (the
@@ -18,7 +17,6 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..kernels.traversal import PIX_H
 from ..render.camera import generate_rays
 from ..render.pipeline import RenderConfig
 from ..render.renderer import get_cast_fn, hit_attributes
@@ -76,11 +74,7 @@ def render_image_sharded(
 ) -> jax.Array:
     """Render one frame with image rows sharded over ``mesh``.
 
-    Row constraint: H must be divisible by n_devices. When each chip's
-    shard height is ALSO a multiple of PIX_H, shards render on the
-    coherent 2D-tile packet path; otherwise they silently take the
-    flat-chunk path (correct, slower) — so heights that are a multiple
-    of n * PIX_H are recommended for performance.
+    Row constraint: H must be divisible by n_devices.
     """
     check_sharded_config(config)
     axis = mesh.axis_names[0]
@@ -104,8 +98,8 @@ def render_image_sharded(
         in_specs=(P(), P(axis, None, None), P(axis, None, None)),
         out_specs=P(axis, None, None),
         # check_vma off: the body is embarrassingly parallel (no
-        # collectives), and vma inference rejects lax.while_loop /
-        # pallas_call carries whose init is unvarying
+        # collectives), and vma inference rejects lax.while_loop
+        # carries whose init is unvarying
         check_vma=False,
     )(scene, origin_b, directions)
     return img
@@ -157,8 +151,8 @@ def render_image_whitted_sharded(
         in_specs=(P(), P(axis, None, None), P(axis, None, None)),
         out_specs=P(axis, None, None),
         # check_vma off: the body is embarrassingly parallel (no
-        # collectives), and vma inference rejects lax.while_loop /
-        # pallas_call carries whose init is unvarying
+        # collectives), and vma inference rejects lax.while_loop
+        # carries whose init is unvarying
         check_vma=False,
     )(scene, origin_b, directions)
 
@@ -170,7 +164,6 @@ def _path_body(config: RenderConfig, bounces, samples, scene, origin,
     radiance = render_path_traced(
         scene, origin, directions, key[0], max_bounces=bounces,
         samples=samples, backend=config.backend, exact=config.exact_math,
-        sort_secondary=False,  # argsort inside shard_map: keep it simple
         tex_filter=config.texture_filter,
     )
     return to_u8(tonemap(radiance, config.tonemap, config.exposure))

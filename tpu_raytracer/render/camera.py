@@ -12,8 +12,8 @@ the ray-generation prologue of the render megakernel
 With D = 0 this is an equidistant fisheye (thetad = atan(r)), exactly
 like the reference running with zero distortion coefficients.
 
-Ray generation is pure jnp over the whole pixel grid — one fused VPU
-stage, no per-pixel anything.
+Ray generation is pure jnp over the whole pixel grid — one fused
+elementwise stage, no per-pixel anything.
 """
 
 from __future__ import annotations

@@ -10,11 +10,10 @@ B3-spline kernel applied ``iterations`` times with dilation 1, 2, 4,
 ..., each tap down-weighted by color, normal, and depth differences so
 smoothing never crosses geometric edges.
 
-TPU mapping: every tap is a statically-shifted slice of an
+Device mapping: every tap is a statically-shifted slice of an
 edge-replicated pad — 25 static slices + elementwise weight math per
 iteration, no gathers, no data-dependent control flow. XLA fuses the
-whole iteration into a handful of VPU loops; at 512^2 x 3 iterations
-the filter costs a fraction of one bounce cast.
+whole iteration into a handful of elementwise loops.
 """
 
 from __future__ import annotations

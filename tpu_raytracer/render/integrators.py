@@ -5,11 +5,10 @@ The reference carries scaffolding for all of this — ``Ray.color`` /
 ``illumination`` / ``terminated`` (Ray.hpp:10-14), the commented-out
 shadow/light-source code (raycast.cu:263-287), and per-pixel curand
 state (raycast.cu:190-193) — but only the flat-shaded primary pass is
-active. These integrators realize that scaffolding TPU-natively: the
-bounce loop is a *wavefront* — each bounce casts the full ray batch
-through the shared nearest-hit backends (renderer.py / the Pallas
-packet kernel), with terminated rays masked rather than compacted
-(dense masked lanes beat dynamic compaction on the VPU).
+active. These integrators realize that scaffolding as a *wavefront*:
+each bounce casts the full ray batch through the shared nearest-hit
+backends (renderer.py, kernels/traverse.py), with terminated rays
+parked on a guaranteed-miss ray rather than compacted.
 
 Colors here are float [0, 1]; the uint8 conversion at the end matches
 the reference's truncating cast (raycast.cu:292-294).
@@ -19,20 +18,19 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.tables import take_rows as _take_rows
 from ..core.vecmath import FLT_MAX, dot, normalize
 from ..scene.scene import SceneArrays
-from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
+from .renderer import (
+    get_cast_fn, hit_attributes, occlusion_cast_fn, park_dead_rays as _park,
+)
 from .shade import (
     DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, sky_radiance, surface_color,
 )
-from .sorted_cast import secondary_cast_fn as _secondary_cast_fn
 
 SKY_F32 = (1.0, 0.8, 0.6)  # raycast.cu:211-213 before the *255
 
@@ -46,35 +44,8 @@ class PointLight:
     intensity: float = 100.0
 
 
-def _bounce_packet(backend: str):
-    """Packet geometry for incoherent BOUNCE casts (reflection rays,
-    path bounces): (pix_h, pix_w) or None for the process default.
-
-    Bounce casts are node-union-bound, and a narrower packet spans
-    fewer distinct origins per tile (PERF_LOG r4: the batched path
-    wavefront at 16x64 beat 64x64 by ~13% — a PROCESS-default
-    geometry measurement, not this two-families-in-one-process
-    mechanism). The family route stays OPT-IN (TRT_BOUNCE_PACKET=HxW;
-    =0 disables) until a hardware A/B of the mechanism itself is
-    recorded in PERF_LOG — it adds a second kernel-family compile
-    (minutes on TPU) to every whitted/path run, which an unmeasured
-    default must not impose."""
-    env = os.environ.get("TRT_BOUNCE_PACKET")
-    if env is not None:
-        if env in ("0", ""):
-            return None
-        h, w = env.lower().split("x")
-        return (int(h), int(w))
-    return None
-
-
 def _reflect(d, n):
     return d - 2.0 * dot(d, n)[..., None] * n
-
-
-# park_dead_rays lives in sorted_cast (shared with shade.py's shadow
-# path without an import cycle)
-from .sorted_cast import park_dead_rays as _park
 
 
 def _direct_illumination(
@@ -134,13 +105,11 @@ def render_whitted(
     origin,
     directions,
     max_bounces: int = 2,
-    backend: str = "bvh",
+    backend: str | None = None,
     light_direction=DEFAULT_LIGHT_DIRECTION,
     point_lights: tuple = (),
     shadows: bool = True,
     exact: bool = True,
-    sort_secondary: bool = False,
-    retile_secondary: bool = False,
     tex_filter: str = "nearest",
     normal_mode: str = "reference",
     _sharded_hooks: dict | None = None,
@@ -151,41 +120,16 @@ def render_whitted(
     continues with weight reflectivity (material.reflectivity — the
     roughness/metallic fields the reference stores but never reads,
     Material.hpp:8-10, realized as an explicit knob). Returns float
-    [..., 3] radiance in [0, 1].
-
-    ``retile_secondary`` (env TRT_WHITTED_RETILE=1/0 overrides):
-    after the primary cast, compute ONE permutation that buckets rays
-    by (hit instance, hit-point morton) and run every remaining
-    shadow/bounce cast in that order, unscattering radiance once at
-    the end. Unlike the r2 per-cast coherence sort (which HALVED fps:
-    argsort+gather+scatter per cast), the machinery here is one
-    argsort + one wavefront gather + one final scatter per FRAME,
-    amortized over 2*max_bounces casts. A pure permutation — per-ray
-    results are bit-identical (packet composition changes visit
-    counts, never hits)."""
-    env = os.environ.get("TRT_WHITTED_RETILE")
-    if env is not None:
-        retile_secondary = env != "0"
+    [..., 3] radiance in [0, 1]."""
     cast = get_cast_fn(backend, want_normals=True)
-    # reflection bounce casts may ride narrow packets (opt-in, see
-    # _bounce_packet: the whitted frame's measured wall is that each
-    # reflection cast costs as much as a primary despite a small live
-    # population — divergent directions blow up the node union inside
-    # the live tiles); shadow casts — directional any-hit AND
-    # distance-bounded point-light queries (dcast) — always keep the
-    # default family (measured ~free / unmeasured on narrow)
-    bcast = get_cast_fn(backend, want_normals=True,
-                        packet=_bounce_packet(backend))
-    cast2 = _secondary_cast_fn(bcast, backend, sort_secondary)
-    dcast = _secondary_cast_fn(cast, backend, sort_secondary)
+    dcast = get_cast_fn(backend)
     occ_cast = occlusion_cast_fn(backend)
     # Scene-sharded seam (parallel/scene_shard.py; same contract as
     # render_path_traced's): the hooks swap exactly the cast+attrs and
     # shadow-cast sites for mesh-combined versions, so the sharded
     # whitted image is THIS estimator by construction, not a copy.
     if _sharded_hooks is not None:
-        retile_secondary = False  # the permutation machinery stays
-        dcast = _sharded_hooks["nearest"]     # single-scene
+        dcast = _sharded_hooks["nearest"]
         occ_cast = _sharded_hooks["occ"]
     directions = jnp.asarray(directions, jnp.float32)
     origin = jnp.broadcast_to(jnp.asarray(origin, jnp.float32), directions.shape)
@@ -195,47 +139,13 @@ def render_whitted(
     throughput = jnp.ones(shape + (3,), jnp.float32)  # Ray.color (Ray.hpp:21)
     active = jnp.ones(shape, bool)
 
-    unscatter = None  # set when retiling kicks in after bounce 0
     o, d = origin, directions
     for bounce in range(max_bounces + 1):
         if _sharded_hooks is not None:
             attrs = _sharded_hooks["cast_attrs"](o, d)
         else:
-            hit = (cast if bounce == 0 else cast2)(scene, o, d)
-            attrs = hit_attributes(scene, o, d, hit, exact=exact,
-                                   normal_mode=normal_mode)
-
-        if bounce == 0 and retile_secondary and max_bounces > 0:
-            # bucket by hit instance (major) then hit-point morton:
-            # rays that hit the same object cluster into the same
-            # packets for every subsequent cast
-            from .sorted_cast import morton30
-
-            flat = lambda a: a.reshape((-1,) + a.shape[len(shape):])
-            loc = flat(attrs.location)
-            lo = jnp.min(loc, axis=0)
-            hi = jnp.max(loc, axis=0)
-            q = jnp.clip(
-                (loc - lo) * (1023.0 / jnp.maximum(hi - lo, 1e-12)),
-                0.0, 1023.0,
-            ).astype(jnp.int32)
-            # 9-bit instance major + 22-bit morton minor (fits i32 for
-            # up to 511 instances; beyond that the morton bits shrink)
-            key = (flat(attrs.inst) + 1) * (1 << 22) + (
-                morton30(q) >> 8
-            )
-            order = jnp.argsort(jnp.where(flat(attrs.hit), key, -1))
-            inv = jnp.zeros_like(order).at[order].set(
-                jnp.arange(order.shape[0], dtype=order.dtype)
-            )
-            perm = lambda a: flat(a)[order]
-            unscatter = lambda a: a[inv].reshape(shape + a.shape[1:])
-            o, d = perm(o), perm(d)
-            radiance = perm(radiance)
-            throughput = perm(throughput)
-            active = perm(active)
-            hit = type(hit)(*(None if x is None else perm(x) for x in hit))
-            attrs = type(attrs)(*(perm(x) for x in attrs))
+            attrs = hit_attributes(scene, o, d, cast(scene, o, d),
+                                   exact=exact, normal_mode=normal_mode)
 
         miss = active & ~attrs.hit
         sky = sky_radiance(scene, d, exact=exact)
@@ -252,7 +162,7 @@ def render_whitted(
         rpack = jnp.stack(
             [scene.mat_reflectivity, scene.mat_illumination], axis=1
         )
-        rrec = _take_rows(rpack, attrs.material)
+        rrec = rpack[attrs.material]
         refl = rrec[..., 0]
         emit = rrec[..., 1]
         local = color * illum[..., None] * (1.0 - refl[..., None]) + emit[..., None]
@@ -266,8 +176,6 @@ def render_whitted(
         d = normalize(_reflect(d, attrs.normal), exact=exact)
         o = attrs.location + d * SHADOW_EPS
         o, d = _park(o, d, active)
-    if unscatter is not None:
-        radiance = unscatter(radiance)
     return radiance
 
 
@@ -300,10 +208,9 @@ def render_path_traced(
     key: jax.Array,
     max_bounces: int = 3,
     samples: int = 4,
-    backend: str = "bvh",
+    backend: str | None = None,
     sky_strength: float = 1.0,
     exact: bool = True,
-    sort_secondary: bool = True,
     tex_filter: str = "nearest",
     lens_radius: float = 0.0,
     focus_distance: float = 4.0,
@@ -345,30 +252,19 @@ def render_path_traced(
     Lambertian BRDF with cosine-weighted sampling, emissive materials
     via mat_illumination, sky as the ambient environment. The bounce
     loop is a dense masked wavefront with terminated lanes PARKED on a
-    guaranteed-miss ray (all-dead tiles traverse nothing); samples
-    accumulate via lax.scan (constant memory in the sample count).
-    ``sort_secondary`` coherence-sorts bounce rays (sorted_cast.py) —
-    default ON here and only here: cosine-scattered bounces are the one
-    workload where the sort measured a win on TPU (+7%; it LOSES on
-    shadow/reflection casts, which stay unsorted). Returns float
-    [..., 3].
+    guaranteed-miss ray; samples run as one batched wavefront (or, with
+    ``sample_batch=False``, accumulate via lax.scan in constant memory).
+    Returns float [..., 3].
     """
     cast = get_cast_fn(backend, want_normals=True)
-    # bounce + tail casts ride narrow packets (union-bound incoherent
-    # rays; see _bounce_packet); the primary cast and NEE shadow casts
-    # keep the default geometry
-    bpacket = _bounce_packet(backend)
-    bcast = get_cast_fn(backend, want_normals=True, packet=bpacket)
-    cast2 = _secondary_cast_fn(bcast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
     nee = light_direction is not None or bool(point_lights)
     # FAST TAIL: with no emissive materials and no NEE, the FINAL
     # bounce's nearest-hit cast is observable only as hit-vs-miss
     # (miss adds throughput * sky; a hit adds emit == 0 and the loop
-    # ends), so it collapses to the ANY-HIT occlusion cast — on the
-    # packet kernels a lane stops traversing at its FIRST accepted hit
-    # instead of refining nearest-t across the whole node union, the
-    # dominant cost for incoherent bounce rays. Bit-exact by
+    # ends), so it collapses to the ANY-HIT occlusion cast — in the
+    # traversal kernel a ray stops at its FIRST accepted hit instead
+    # of refining nearest-t through the tree. Bit-exact by
     # construction (same intersection predicate decides the boolean).
     # scene.has_emissive is a STATIC flag: the choice is made at trace
     # time (the r3 lesson — never gate dead casts on traced scalars).
@@ -377,9 +273,6 @@ def render_path_traced(
         and not scene.has_emissive
         and max_bounces >= 1
         and os.environ.get("TRT_PATH_TAIL", "1") != "0"
-    )
-    occ2 = _secondary_cast_fn(
-        occlusion_cast_fn(backend, packet=bpacket), backend, sort_secondary
     )
     # Scene-sharded seam (parallel/scene_shard.py): when the geometry is
     # sharded over a device mesh, every cast must be the COMBINED cast
@@ -392,11 +285,8 @@ def render_path_traced(
             return hit_attributes(scene, o, d, cast(scene, o, d),
                                   exact=exact, normal_mode=normal_mode)
 
-        def _attrs_bounce(o, d):
-            return hit_attributes(scene, o, d, cast2(scene, o, d),
-                                  exact=exact, normal_mode=normal_mode)
-
-        _tail_occ = occ2
+        _attrs_bounce = _attrs_primary
+        _tail_occ = occ_cast
         _nee_cast, _nee_occ = cast, occ_cast
     else:
         _attrs_primary = _attrs_bounce = _sharded_hooks["cast_attrs"]
@@ -415,13 +305,11 @@ def render_path_traced(
         radiance = radiance + jnp.where(miss[..., None], throughput * sky, 0.0)
         live = active & attrs.hit
         color = surface_color(scene, attrs, tex_filter=tex_filter)
-        # one packed [M, 3] material lookup (illum/refl/rough) via the
-        # one-hot contraction (core/tables.py) — per-element gathers
-        # were the shade wall
-        mpack = _take_rows(jnp.stack(
+        # one packed [M, 3] material lookup (illum/refl/rough)
+        mpack = jnp.stack(
             [scene.mat_illumination, scene.mat_reflectivity,
              scene.mat_roughness], axis=1
-        ), attrs.material)
+        )[attrs.material]
         emit = mpack[..., 0]
         radiance = radiance + jnp.where(
             live[..., None], throughput * emit[..., None], 0.0
@@ -444,7 +332,7 @@ def render_path_traced(
         # glossy lobe: mirror blended toward the cosine sample by
         # roughness, flipped back to the diffuse sample if it dips
         # under the surface. When every reflectivity is 0 the selects
-        # all pick d_diff — identical output, and the extra VPU ops
+        # all pick d_diff — identical output, and the extra elementwise ops
         # are noise next to a cast.
         rough = mpack[..., 2][..., None]
         mirror = _reflect(d, attrs.normal)
@@ -504,13 +392,8 @@ def render_path_traced(
 
     # SAMPLE-BATCHED WAVEFRONT (default; TRT_PATH_SAMPLE_BATCH=0 falls
     # back to the per-sample lax.scan): run all S samples as one
-    # (S,)+shape ray batch instead of a sequential scan. Bounce casts
-    # then hand the coherence sorter an S-times denser ray pool — the S
-    # bounce rays of a pixel share their ORIGIN (the same primary hit),
-    # so their morton keys collide and they pack into the same tiles:
-    # each packet spans ~1/S the spatial extent, shrinking the
-    # traversed node union (the measured wall for incoherent bounces;
-    # TPU A/B: colonnade fly-through 131.0 -> 122.8 ms). Same
+    # (S,)+shape ray batch instead of a sequential scan — S times fewer
+    # cast launches, each S times wider. Same
     # estimator/distribution, different random stream than the scan
     # (draws are shaped (S,)+shape rather than per-sample), so images
     # differ sample-noise-level only. Wavefront memory scales with S —
@@ -575,7 +458,7 @@ def render_ao(
     key: jax.Array,
     samples: int = 8,
     radius: float = 1.0,
-    backend: str = "bvh",
+    backend: str | None = None,
     exact: bool = True,
     normal_mode: str = "reference",
 ) -> jax.Array:
@@ -590,7 +473,7 @@ def render_ao(
     t < radius), so they use the nearest-hit cast, not the unbounded
     any-hit shadow cast (renderer.occlusion_cast_fn docstring)."""
     cast = get_cast_fn(backend, want_normals=True)
-    cast2 = _secondary_cast_fn(get_cast_fn(backend), backend, False)
+    cast2 = get_cast_fn(backend)
     directions = jnp.asarray(directions, jnp.float32)
     origin = jnp.broadcast_to(jnp.asarray(origin, jnp.float32), directions.shape)
     shape = directions.shape[:-1]
@@ -628,7 +511,7 @@ def tonemap(radiance: jax.Array, mode: str = "none",
                  historical output);
     ``reinhard`` x/(1+x) then sRGB-ish 1/2.2 gamma;
     ``aces``     Narkowicz's ACES filmic fit then 1/2.2 gamma.
-    All elementwise VPU math — XLA fuses it into the shading epilogue.
+    All elementwise math — XLA fuses it into the shading epilogue.
     """
     x = radiance * exposure
     if mode == "none":

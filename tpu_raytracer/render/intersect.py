@@ -1,5 +1,6 @@
 """Ray/triangle and ray/AABB intersection math, shared by every backend
-(brute force, XLA BVH, Pallas packet kernel) so they agree bit-for-bit.
+(brute force, XLA BVH walk; native/traverse.h repeats it operation for
+operation in the traversal kernel) so they agree.
 
 Semantics match the reference exactly:
   * two-step triangle test — plane hit point first
@@ -28,7 +29,7 @@ WATERTIGHT_NUDGE = 1e-12  # absolute box out-round, applied in t-space
 # Inclusive barycentric bound. Exactly-on-edge rays (axis-aligned
 # cameras + vertex rings produce them SYSTEMATICALLY) have u or v == 0
 # in exact math, so f32 rounding decides the hit — and rounds
-# differently between XLA and Mosaic (FMA contraction), and can round
+# differently between XLA and nvcc (FMA contraction), and can round
 # NEGATIVE on BOTH triangles sharing the edge (a crack). Accepting down
 # to -EDGE_EPS (dimensionless — barycentric coords are scale-free)
 # moves the accept boundary off the tie point: backends agree and
@@ -69,14 +70,13 @@ def barycentric_rows(tv0, tv1, tv2):
     u = rA . (p - v0) and v = rB . (p - v0) for any plane point p.
 
     Folding the 2x2 Cramer inverse into per-triangle constants removes
-    ~8 wide VPU ops per (ray, triangle) from every backend's inner test
-    relative to the textbook dot00/dot01/... evaluation (r3 flagship
-    anatomy: leaf triangle math is the wall-time floor). Basis matches
+    ~8 elementwise ops per (ray, triangle) from every backend's inner test
+    relative to the textbook dot00/dot01/... evaluation. Basis matches
     the reference (e0 = C - A, e1 = B - A, TrianglePrimitive.hpp:151-
     177); the row form is algebraically identical, rounded once per
     triangle instead of per ray. All backends (brute oracle, XLA walk,
-    Pallas kernels via the packed records) use THESE rows, so they
-    agree bit-for-bit on u/v."""
+    traversal kernel via its triangle records) use THESE rows, so they
+    agree on u/v."""
     e0 = tv2 - tv0
     e1 = tv1 - tv0
     dot00 = dot(e0, e0)
@@ -92,9 +92,9 @@ def barycentric_uv(origin, direction, t, tv0, tv1, tv2):
     """Raw barycentric coordinates of the ray's plane point
     (TrianglePrimitive.hpp:151-169). Takes the RAY (origin, direction,
     plane parameter t) rather than the hit point: the local offset is
-    evaluated as (origin - v0) + t*d so the f32 rounding matches the
-    Pallas kernels' fused form exactly (computing p = o + t*d first
-    then p - v0 rounds differently). Returns (u, v)."""
+    evaluated as (origin - v0) + t*d, the form the traversal kernel
+    uses (computing p = o + t*d first then p - v0 rounds differently).
+    Returns (u, v)."""
     ra, rb = barycentric_rows(tv0, tv1, tv2)
     e2 = (origin - tv0) + t[..., None] * direction
     u = dot(ra, e2)

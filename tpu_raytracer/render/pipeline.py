@@ -26,7 +26,9 @@ class RenderConfig:
 
     width: int
     height: int
-    backend: str = "bvh"  # brute | bvh | pallas
+    # brute | bvh | cuda; None = renderer.default_backend() for JAX's
+    # default platform (cuda on a GPU, bvh elsewhere)
+    backend: str | None = None
     lighting: str = "flat"  # flat | lambert | lambert_shadow | blinn_phong
     light_direction: tuple = DEFAULT_LIGHT_DIRECTION
     exact_math: bool = True  # False = reference Q_rsqrt normalize parity
@@ -154,29 +156,6 @@ def render_aovs(
         "triangle": jnp.where(attrs.hit, hit.tri, miss_i),
         "hit": attrs.hit,
     }
-
-
-def render_image_paged(
-    config: RenderConfig,
-    scene: SceneArrays,
-    K_inv: jax.Array,
-    D: jax.Array,
-    pose: jax.Array,
-    inv_pose: jax.Array,
-) -> jax.Array:
-    """Primary render FORCING the HBM-paged packet kernel
-    (kernels/paged.py). The page partition is value-dependent host
-    work, so this wrapper attaches it EAGERLY (scene.with_paging) and
-    the tables ride the scene pytree through the jit boundary — call
-    with concrete scene arrays, not from inside another jit.
-
-    Note big scenes no longer need this entry point: Scene.compile
-    auto-attaches paging tables beyond the VMEM budget, and the
-    ``pallas`` backend routes to the paged kernel automatically."""
-    cfg = dataclasses.replace(config, backend="paged")
-    return render_image(
-        cfg, scene.with_paging(), K_inv, D, pose, inv_pose
-    )
 
 
 def render(camera: Camera, scene: SceneArrays, config: RenderConfig | None = None, **kw) -> jax.Array:

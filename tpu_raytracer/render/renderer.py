@@ -10,8 +10,11 @@ shading. Backends:
     (SURVEY.md §4 test strategy item 5). O(rays x tris), test-only.
   * ``cast_rays_bvh``: per-ray short-stack BVH walk (vmapped
     lax.while_loop) with the reference's ordered near-child-first push
-    and t-pruning (raycast.cu:54-138). Runs anywhere; the Pallas packet
-    kernel (kernels/traversal.py) is the TPU hot path.
+    and t-pruning (raycast.cu:54-138). Runs anywhere; the default off
+    the GPU.
+  * ``cuda`` (kernels/traverse.py): the same walk as a per-ray CUDA
+    kernel through jax.ffi — the GPU default; on the CPU its host build
+    runs for tests.
 
 Instance handling matches raycast.cu:26-51: rays are transformed into
 object space with precomputed inverse transforms, hit points are mapped
@@ -28,6 +31,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..accel.bvh import MAX_BVH_DEPTH
 from ..core import transforms as T
 from ..core.vecmath import FLT_MAX, dot, magnitude, normalize
 from ..scene.scene import SceneArrays
@@ -40,7 +44,10 @@ from .intersect import (
     safe_reciprocal,
 )
 
-STACK_SIZE = 40  # max BVH depth is 32 (MeshPrimitive.cpp:54); pops push <= +1
+# A walk holds at most one pending sibling per tree level plus the two
+# children just pushed: MAX_BVH_DEPTH entries, and one spare. A push past
+# the end would be dropped silently by .at[].set and lose hits.
+STACK_SIZE = MAX_BVH_DEPTH + 1
 
 
 class Hit(NamedTuple):
@@ -49,11 +56,11 @@ class Hit(NamedTuple):
 
     ``u``/``v`` (optional, None when the backend does not carry them):
     the accepted triangle's barycentric coordinates, recorded by the
-    Pallas kernels at accept time on textured scenes. When present,
-    hit_attributes derives shading UVs from them directly — skipping
-    the object-space ray rebuild + [T, 18] record gather + barycentric
-    redo, the dominant attrs cost on textured scenes (PERF_LOG r3).
-    Bit-identical to the redo (shared affine rows, intersect.py)."""
+    traversal kernel at accept time when the caller wants normals. When
+    present, hit_attributes derives shading UVs from them directly —
+    skipping the [T, 18] record gather and the barycentric redo. Same
+    affine rows as the redo (intersect.py); equal up to FMA contraction
+    of the kernel's compiler."""
 
     t: jax.Array
     tri: jax.Array
@@ -61,8 +68,8 @@ class Hit(NamedTuple):
     u: jax.Array | None = None
     v: jax.Array | None = None
     # object-space face normal [..., 3] of the accepted triangle —
-    # carried on request (want_normals) by the same kernels; pure
-    # selects of record rows, so bit-identical to the tri_normal gather
+    # carried on request (want_normals) by the traversal kernel; a copy
+    # of the record's normal, so identical to the tri_normal gather
     n: jax.Array | None = None
 
 
@@ -136,7 +143,7 @@ def _cast_one_bvh(scene: SceneArrays, origin, direction) -> Hit:
         obj_org, obj_dir = _instance_object_ray(scene, i, origin, direction)
         inv_dir = safe_reciprocal(obj_dir)
 
-        def leaf_fn(node, carry):
+        def leaf_fn(node, is_leaf, carry):
             t_best, tri_best = carry
 
             def tri_body(k, c):
@@ -157,7 +164,7 @@ def _cast_one_bvh(scene: SceneArrays, origin, direction) -> Hit:
                 )
 
             start = scene.node_leaf_start[node]
-            count = scene.node_leaf_count[node]
+            count = jnp.where(is_leaf, scene.node_leaf_count[node], 0)
             return jax.lax.fori_loop(start, start + count, tri_body, (t_best, tri_best))
 
         def step(carry):
@@ -185,9 +192,11 @@ def _cast_one_bvh(scene: SceneArrays, origin, direction) -> Hit:
             stack = stack.at[sp1].set(jnp.where(push2, second, stack[sp1]))
             sp2 = sp1 + push2.astype(jnp.int32)
 
-            t_leaf, tri_leaf = jax.lax.cond(
-                is_leaf, leaf_fn, lambda n, c: c, node, (t_best, tri_best)
-            )
+            # internal nodes run the leaf loop zero times. (A lax.cond
+            # here becomes a select under vmap whose batching rule
+            # broadcasts every closed-over scene table to [rays, ...]:
+            # rays x triangles records, terabytes at 1080p.)
+            t_leaf, tri_leaf = leaf_fn(node, is_leaf, (t_best, tri_best))
             return sp2, stack, t_leaf, tri_leaf
 
         stack0 = jnp.zeros(STACK_SIZE, jnp.int32).at[0].set(scene.mesh_root[scene.inst_mesh[i]])
@@ -251,17 +260,12 @@ def hit_attributes(
 
     # one [I, 18] lookup for all per-instance transform fields. With a
     # SINGLE instance the clamped index is statically 0 — the lookup
-    # is a row-0 broadcast. Multi-instance scenes route through
-    # take_rows (one-hot contraction): the 18-elements-per-ray gather
-    # this used to be was the multi-instance shade wall (TPU gathers
-    # cost per element, PERF_LOG r3/r5).
-    from ..core.tables import take_rows
-
+    # is a row-0 broadcast.
     ipack = jnp.concatenate(
         [scene.inst_pose, scene.inst_inv_pose, scene.inst_scale,
          scene.inst_inv_scale], axis=1
     )
-    irec = ipack[0] if scene.inst_pose.shape[0] == 1 else take_rows(ipack, inst)
+    irec = ipack[0] if scene.inst_pose.shape[0] == 1 else ipack[inst]
     inst_pose = irec[..., 0:6]
     inst_inv_pose = irec[..., 6:12]
     scale = irec[..., 12:15]
@@ -272,14 +276,11 @@ def hit_attributes(
 
     carried = hit.u is not None or hit.n is not None
     if carried:
-        # Kernel-carried hit attributes (Hit.u/v on textured scenes,
-        # Hit.n when the caller wants normals): each chain collapses to
-        # at most one narrow gather. TPU gathers cost per ELEMENT
-        # (PERF_LOG r3: attrs was ~36 gathered elements/ray and the
-        # wall on textured scenes). Bit-exact on TPU: u/v are the
-        # oracle's (shared affine rows), n is a pure record select,
-        # and the interpolation below is point_in_triangle_uv's exact
-        # expression.
+        # Kernel-carried hit attributes (Hit.u/v/n when the caller wants
+        # normals): each chain collapses to at most one narrow gather.
+        # u/v come from the oracle's affine rows, n is a copy of the
+        # record's normal, and the interpolation below is
+        # point_in_triangle_uv's expression.
         if hit.u is not None:
             uvpack = jnp.concatenate(
                 [scene.tri_uv0, scene.tri_uv1, scene.tri_uv2], axis=1
@@ -288,10 +289,10 @@ def hit_attributes(
             u_b, v_b = hit.u, hit.v
             uv = bary_interp(u_b, v_b, uvr[..., 0:2], uvr[..., 2:4],
                              uvr[..., 4:6])
-        # hit.t IS the plane parameter on accepted lanes (kernel t ==
-        # ray_plane_hit's t bit-for-bit, v17 notes), so the plane redo
-        # drops; same point formula as ray_plane_hit. Misses keep
-        # finite garbage (t clamped to 0) like the redo produced.
+        # hit.t IS the plane parameter on accepted lanes (the kernel
+        # runs ray_plane_hit's arithmetic), so the plane redo drops;
+        # same point formula as ray_plane_hit. Misses keep finite
+        # garbage (t clamped to 0) like the redo produced.
         tp = jnp.where(ok, hit.t, 0.0)
         point = obj_org + tp[..., None] * obj_dir
         tnormal = hit.n if hit.n is not None else scene.tri_normal[tri]
@@ -311,9 +312,8 @@ def hit_attributes(
             uv = bary_interp(u_b, v_b, uvrec[..., 9:11],
                              uvrec[..., 11:13], uvrec[..., 13:15])
     else:
-        # ONE wide row gather instead of 7 separate table gathers (TPU
-        # gathers are expensive per-op; the [T, 18] concat is a cheap
-        # bandwidth pass inside the same jit)
+        # ONE wide row gather instead of 7 separate table gathers (the
+        # [T, 18] concat is a cheap bandwidth pass inside the same jit)
         packed = jnp.concatenate(
             [scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_normal,
              scene.tri_uv0, scene.tri_uv1, scene.tri_uv2], axis=1
@@ -359,7 +359,7 @@ def hit_attributes(
     # source instance's material into tri_mat; -1 = resolve via inst)
     tmat = scene.tri_mat[tri]
     imat = (scene.inst_material[0] if scene.inst_pose.shape[0] == 1
-            else take_rows(scene.inst_material, inst))
+            else scene.inst_material[inst])
     material = jnp.where(tmat >= 0, tmat, imat)
     return HitAttributes(
         hit=ok,
@@ -372,93 +372,80 @@ def hit_attributes(
     )
 
 
-CAST_FNS = {
-    "brute": cast_rays_brute,
-    "bvh": cast_rays_bvh,
-}
+# Terminated-lane parking spot: origin far outside every scene with a
+# direction pointing away, so a dead lane misses both children of every
+# root and costs one node visit per instance instead of a full walk.
+# Bounce and shadow casts keep the image shape and cast every lane;
+# parking makes their cost track the LIVE ray population. slab:
+# t = (box - 1e9) * 1 < 0 on every axis => far < 0 => miss, no inf/NaN.
+PARK_ORIGIN = 1.0e9
+PARK_DIRECTION = (1.0, 1.0, 1.0)
 
 
-def _cast_rays_paged_auto(scene: SceneArrays, origin, directions) -> Hit:
-    """Force the HBM-paged packet kernel regardless of scene size
-    (cast_rays_pallas already routes big scenes there automatically —
-    this backend exists for A/B and for forcing paging on small scenes).
-    Tables come from scene.paged or are built eagerly."""
-    from ..kernels.paged import cast_rays_paged, prepare_paged
-
-    tables = scene.paged
-    if tables is None:
-        if isinstance(scene.node_child_a, jax.core.Tracer):
-            raise ValueError(
-                "paged backend inside jit needs scene.with_paging() first"
-            )
-        tables = prepare_paged(scene)
-    return cast_rays_paged(scene, tables, origin, directions)
+def park_dead_rays(o, d, live):
+    """Replace dead lanes' rays with the guaranteed-miss parked ray;
+    live lanes pass through unchanged."""
+    keep = live[..., None]
+    return (
+        jnp.where(keep, o, PARK_ORIGIN),
+        jnp.where(keep, d, jnp.asarray(PARK_DIRECTION, jnp.float32)),
+    )
 
 
-def _cast_rays_paged_major(scene: SceneArrays, origin, directions) -> Hit:
-    """Force the PAGE-major paged kernel (kernels/paged_major.py).
-    The `paged` backend also routes here when TRT_PAGED_MAJOR=1."""
-    from ..kernels.paged import prepare_paged
-    from ..kernels.paged_major import cast_rays_paged_major
-
-    tables = scene.paged
-    if tables is None or not tables.has_wide:
-        if isinstance(scene.node_child_a, jax.core.Tracer):
-            raise ValueError(
-                "paged_major backend inside jit needs scene.with_paging()"
-            )
-        tables = prepare_paged(scene, wide=True)
-    return cast_rays_paged_major(scene, tables, origin, directions)
+BACKENDS = ("brute", "bvh", "cuda")
+# packet kernels of an earlier version of this renderer; asking for one
+# is an error, never a silent substitute
+REMOVED_BACKENDS = ("pallas", "paged", "paged_major")
 
 
-def occlusion_cast_fn(backend: str, packet=None):
+def default_backend() -> str:
+    """The traversal backend for JAX's default platform: the per-ray
+    CUDA kernel on a GPU, the XLA walk elsewhere."""
+    return "cuda" if jax.default_backend() == "gpu" else "bvh"
+
+
+def resolve_backend(backend: str | None) -> str:
+    """``None`` -> default_backend(); a known name passes through;
+    removed or unknown names raise ValueError."""
+    if backend is None:
+        return default_backend()
+    if backend in REMOVED_BACKENDS:
+        raise ValueError(
+            f"backend {backend!r} was a packet kernel of an earlier "
+            f"version and has been removed; choose one of {BACKENDS} "
+            f"(default on this "
+            f"platform: {default_backend()!r})"
+        )
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose one of {BACKENDS}")
+    return backend
+
+
+def occlusion_cast_fn(backend: str | None):
     """ANY-HIT cast for BOOLEAN shadow queries (occluded iff
-    t < FLT_MAX): on the pallas backend the packet kernels collapse a
-    ray's remaining traversal the moment ANY hit is accepted
-    (make_test_tri occlusion mode — t becomes -BIG, killing every
-    later slab/triangle test for that lane), which is all a hard
-    shadow needs. Other backends return their nearest-hit cast (same
-    boolean). Distance-bounded queries (point lights) must NOT use
-    this. TRT_OCC_SHADOW=0 forces nearest-hit casts for A/B.
-    ``packet``: see get_cast_fn."""
-    import os
+    t < FLT_MAX): the traversal kernel stops a ray at its first accepted
+    hit, which is all a hard shadow needs. The other backends return
+    their nearest-hit cast (same boolean). Distance-bounded queries
+    (point lights, ambient occlusion) must NOT use this."""
+    backend = resolve_backend(backend)
+    if backend == "cuda":
+        from ..kernels.traverse import cast_rays_kernel
 
-    cast = get_cast_fn(backend, packet=packet)
-    if backend == "pallas" and os.environ.get("TRT_OCC_SHADOW", "1") != "0":
-        return functools.partial(cast, occlusion=True)
-    return cast
+        return functools.partial(cast_rays_kernel, any_hit=True)
+    return get_cast_fn(backend)
 
 
-def get_cast_fn(backend: str, want_normals: bool = False, packet=None):
-    """``want_normals``: the caller's shading mode reads attrs.normal
-    (any non-flat lighting, bounce integrators, AOVs) — kernel-backed
-    casts then carry the accepted triangle's face normal on Hit.n so
-    hit_attributes skips the triangle-record gather. Backends without
-    the carry ignore the request (attrs falls back to the redo).
+def get_cast_fn(backend: str | None, want_normals: bool = False):
+    """Nearest-hit cast of ``backend`` (None = the platform default).
 
-    ``packet``: optional (pix_h, pix_w) packet-geometry override for
-    the pallas backend — casts route to the kernels.family instance at
-    that geometry instead of the process default (narrow packets for
-    incoherent bounce casts; see kernels/family.py). Ignored by other
-    backends. Hit DISTANCES are bit-identical across geometries;
-    tri/inst ids may flip on exact t-ties (tie-breaking follows visit
-    order, which depends on packet membership — kernels/family.py
-    tie-semantics note)."""
-    if backend == "pallas":
-        if packet is not None:
-            from ..kernels.family import family_cast_fn
+    ``want_normals``: the caller's shading mode reads attrs.normal (any
+    non-flat lighting, bounce integrators, AOVs) — the traversal kernel
+    then carries the accepted triangle's barycentric u/v and face normal
+    on the Hit, so hit_attributes skips the triangle-record redo. The
+    XLA backends ignore the request (attrs falls back to the redo)."""
+    backend = resolve_backend(backend)
+    if backend == "cuda":
+        from ..kernels.traverse import cast_rays_kernel
 
-            fcast = family_cast_fn(*packet)
-            if want_normals:
-                return functools.partial(fcast, want_normals=True)
-            return fcast
-        from ..kernels.traversal import cast_rays_pallas
-
-        if want_normals:
-            return functools.partial(cast_rays_pallas, want_normals=True)
-        return cast_rays_pallas
-    if backend == "paged":
-        return _cast_rays_paged_auto
-    if backend == "paged_major":
-        return _cast_rays_paged_major
-    return CAST_FNS[backend]
+        return functools.partial(cast_rays_kernel, want_normals=want_normals)
+    return {"brute": cast_rays_brute, "bvh": cast_rays_bvh}[backend]

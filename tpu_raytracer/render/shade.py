@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from ..core.vecmath import FLT_MAX, dot, normalize
 from ..scene.scene import SceneArrays
-from .renderer import HitAttributes, get_cast_fn
+from .renderer import HitAttributes, get_cast_fn, park_dead_rays
 
 SKY_COLOR = (255, 204, 153)  # raycast.cu:211-213 (1.0, 0.8, 0.6) * 255
 SHADOW_EPS = jnp.float32(1e-4)  # raycast.cu:259
@@ -39,8 +39,6 @@ def point_light_illumination(
     inverse-square falloff, cosine weighting, and (when ``cast`` is
     given) a hard shadow ray per light that checks for occluders
     BETWEEN the surface point and the light."""
-    from .sorted_cast import park_dead_rays as _park
-
     illum = jnp.zeros(attrs.t.shape, jnp.float32)
     for light in point_lights:
         lpos = jnp.asarray(light.position, jnp.float32)
@@ -50,7 +48,7 @@ def point_light_illumination(
         cos_i = jnp.maximum(dot(attrs.normal, ldir), 0.0)
         falloff = light.intensity / jnp.maximum(dist * dist, 1e-8)
         if cast is not None:
-            occ = cast(scene, *_park(
+            occ = cast(scene, *park_dead_rays(
                 attrs.location + ldir * SHADOW_EPS, ldir, attrs.hit
             ))
             lit = occ.t >= dist
@@ -73,12 +71,10 @@ def sample_texture(
     ``bilinear`` is a framework extension (the reference has no
     filtering) — texel-center convention, positive wrap on both
     corners. Returns [..., 3] f32 in [0, 1]."""
-    from ..core.tables import take_rows
-
     pack = jnp.stack(
         [scene.mat_tex_start, scene.mat_tex_w, scene.mat_tex_h], axis=1
     )
-    rec = take_rows(pack, material)
+    rec = pack[material]
     return _sample_texture_vals(
         scene, rec[..., 0], rec[..., 1], rec[..., 2], uv,
         tex_filter=tex_filter,
@@ -87,8 +83,7 @@ def sample_texture(
 
 def _fetch_texel(scene, idx) -> jax.Array:
     # atlas texels are PACKED one-i32-per-texel (r | g<<8 | b<<16,
-    # scene.py): a single-word gather is far cheaper on TPU than a
-    # [P, 3] u8 row gather; unpack with shifts after the gather
+    # scene.py): one word per texel fetch; unpack with shifts
     word = scene.tex_atlas[jnp.clip(idx, 0, scene.tex_atlas.shape[0] - 1)]
     return jnp.stack(
         [word & 0xFF, (word >> 8) & 0xFF, (word >> 16) & 0xFF], axis=-1
@@ -138,10 +133,7 @@ def _sample_texture_trilinear(scene, mat, uv, duv_dx, duv_dy) -> jax.Array:
     footprint of the screen derivatives, bilinear taps on the two
     bracketing mip levels, lerp. Levels live in the same packed atlas
     (scene.mat_tex_mip_start)."""
-    from ..core.tables import take_rows
-
-    whp = take_rows(jnp.stack([scene.mat_tex_w, scene.mat_tex_h], axis=1),
-                    mat)
+    whp = jnp.stack([scene.mat_tex_w, scene.mat_tex_h], axis=1)[mat]
     w = whp[..., 0]
     h = whp[..., 1]
     wh = whp.astype(jnp.float32)
@@ -162,7 +154,7 @@ def _sample_texture_trilinear(scene, mat, uv, duv_dx, duv_dy) -> jax.Array:
     flat_starts = scene.mat_tex_mip_start.reshape(-1)
 
     def level_tap(lev):
-        start = take_rows(flat_starts, mat * n_levels + lev)
+        start = flat_starts[mat * n_levels + lev]
         wl = jnp.maximum(jax.lax.shift_right_logical(w, lev), 1)
         hl = jnp.maximum(jax.lax.shift_right_logical(h, lev), 1)
         return _sample_texture_bilinear(scene, start, wl, hl, uv)
@@ -240,19 +232,14 @@ def surface_color(
 ) -> jax.Array:
     """Texture sample where textured, else albedo (raycast.cu:224-245).
     Multiplied against the ray color (init (1,1,1), Ray.hpp:21).
-    Material-table lookups go through core.tables.take_rows (one-hot
-    contraction / select chain instead of per-element gathers — the
-    measured textured-shade wall, PERF_LOG r5); the integer
-    (tex_start, w, h) pack stays i32 end-to-end, so atlas offsets past
-    2^24 texels (a single 4096x4096 texture is 16.78M) never round
-    through f32.
+    The integer (tex_start, w, h) pack stays i32 end-to-end, so atlas
+    offsets past 2^24 texels (a single 4096x4096 texture is 16.78M)
+    never round through f32.
 
     ``trilinear`` needs screen-space UV derivatives (``uv_ddx/ddy``,
     see uv_screen_derivatives); without them it degrades to bilinear
     (secondary/bounce rays have no screen footprint)."""
-    from ..core.tables import take_rows
-
-    alb = take_rows(scene.mat_albedo, attrs.material)
+    alb = scene.mat_albedo[attrs.material]
     if not scene.has_textures:
         # STATIC gate: no material anywhere is textured, so the atlas
         # sample below is pure discarded work — skip it at trace time
@@ -260,7 +247,7 @@ def surface_color(
     ipack = jnp.stack(
         [scene.mat_tex_start, scene.mat_tex_w, scene.mat_tex_h], axis=1
     )
-    mi = take_rows(ipack, attrs.material)
+    mi = ipack[attrs.material]
     start = mi[..., 0]
     w = mi[..., 1]
     h = mi[..., 2]
@@ -290,7 +277,7 @@ def compute_illumination(
     light_direction,
     mode: str,
     exact: bool = True,
-    backend: str = "bvh",
+    backend: str | None = None,
     directions=None,
     point_lights: tuple = (),
     cast_fn=None,
@@ -329,7 +316,6 @@ def compute_illumination(
             illum = illum + BLINN_SPECULAR * spec ** BLINN_SHININESS
         elif mode == "lambert_shadow":
             from .renderer import occlusion_cast_fn
-            from .sorted_cast import park_dead_rays
 
             # cast_fn override: scene-sharded rendering injects a cast
             # whose occlusion t is already min-combined across shards
@@ -371,9 +357,7 @@ def compute_illumination(
         elif nearest_cast_fn is not None:
             pcast = nearest_cast_fn
         else:
-            from .sorted_cast import secondary_cast_fn
-
-            pcast = secondary_cast_fn(get_cast_fn(backend), backend)
+            pcast = get_cast_fn(backend)
         illum = illum + point_light_illumination(
             scene, attrs, point_lights, cast=pcast
         )
@@ -388,7 +372,7 @@ def shade_primary(
     light_direction=DEFAULT_LIGHT_DIRECTION,
     mode: str = "flat",
     exact: bool = True,
-    backend: str = "bvh",
+    backend: str | None = None,
     directions=None,
     point_lights: tuple = (),
     tex_filter: str = "nearest",

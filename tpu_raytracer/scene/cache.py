@@ -18,14 +18,16 @@ import numpy as np
 
 from .scene import Scene, SceneArrays
 
+# TRT_SCENE_CACHE, else .cache/scenes inside the checkout (git-ignored)
 DEFAULT_CACHE_DIR = os.environ.get(
-    "TRT_SCENE_CACHE", os.path.expanduser("~/.cache/tpu_raytracer")
+    "TRT_SCENE_CACHE",
+    str(pathlib.Path(__file__).resolve().parents[2] / ".cache" / "scenes"),
 )
 
 
 # Bump when SceneArrays' field set or compile semantics change, so old
 # cache entries never alias a new-format scene.
-_FORMAT_VERSION = b"scenearrays-v7-sky"
+_FORMAT_VERSION = b"scenearrays-v8-unpadded"
 
 
 def scene_fingerprint(scene: Scene) -> str:

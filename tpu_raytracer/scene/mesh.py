@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from ..accel.bvh import BVHArrays, build_bvh
+from ..accel.bvh import MAX_BVH_DEPTH, BVHArrays, build_bvh
 from ..core.vecmath import q_rsqrt
 
 # BVH-build disk cache: keyed on triangle content + builder knobs + a
@@ -26,26 +26,16 @@ _BVH_BUILDER_VERSION = b"bvh-v2-forcesplit512-depth48"
 
 
 def _bvh_cache_dir() -> "str":
+    """BVH build cache: ``TRT_BVH_CACHE`` or ``.cache/bvh`` in the
+    checkout (git-ignored), so a run reads and writes nothing outside
+    its tree."""
     import os
 
     return os.environ.get(
         "TRT_BVH_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "tpu_raytracer", "bvh"),
+        os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".cache", "bvh"),
     )
-
-
-def _paged_only_size(num_tris: int) -> bool:
-    """True when a mesh of this size can ONLY route to the HBM-paged
-    kernels: its packed triangle records alone exceed the resident
-    packet kernel's VMEM scene budget (kernels/traversal.py
-    VMEM_SCENE_BUDGET), before counting a single BVH node row.
-    Deliberately conservative — borderline meshes stay presplit-free
-    so ref duplication can never push a resident-capable scene into
-    the (slower) paged route."""
-    from ..kernels.traversal import REC_PER_ROW, TILE_L, VMEM_SCENE_BUDGET
-
-    tri_rows = -(-num_tris // REC_PER_ROW) + 1
-    return tri_rows * TILE_L * 4 > VMEM_SCENE_BUDGET
 
 
 def _cached_bvh_build(v0, v1, v2, max_depth, min_leaf_size, builder, num):
@@ -53,9 +43,8 @@ def _cached_bvh_build(v0, v1, v2, max_depth, min_leaf_size, builder, num):
     import os
 
     # sweep-SAH quality mode (accel/bvh.py build_bvh mode="sweep") is
-    # the DEFAULT tree: strictly cheaper SAH (colonnade -37%), faster
-    # builds, measured wins on every TPU config (PERF_LOG r4). Opt out
-    # with TRT_BVH_SWEEP=0 or builder="native" (reference-parity tree;
+    # the DEFAULT tree: strictly cheaper SAH (colonnade -37%) and
+    # faster builds. Opt out with TRT_BVH_SWEEP=0 or builder="native" (reference-parity tree;
     # build_bvh mode="reference" stays the parity surface for tests).
     sweep = builder == "sweep" or (
         builder in ("auto", "numpy")
@@ -68,21 +57,10 @@ def _cached_bvh_build(v0, v1, v2, max_depth, min_leaf_size, builder, num):
     opt_rounds = int(os.environ.get("TRT_BVH_OPT", "0"))
     # TRT_BVH_PRESPLIT=<budget factor>: pre-split oversized triangles
     # into multiple clipped-box refs before the build
-    # (accel/presplit.py). No-op on uniform meshes (area gate); images
-    # bit-identical (same triangle records, different node membership).
-    # Adaptive default (PERF_LOG r5): presplit is a measured +19-32%
-    # on beyond-VMEM scenes through the HBM-paged kernels (tighter
-    # boxes -> fewer visible pages -> less DMA) and a ~1% negative on
-    # resident trees (colonnade_path A/B), so it defaults ON exactly
-    # where it wins: meshes whose triangle records ALONE overflow the
-    # resident kernel's VMEM scene budget (those can only route paged,
-    # with or without the ref duplication). Explicit env overrides
-    # both ways (=0 disables everywhere).
-    presplit_env = os.environ.get("TRT_BVH_PRESPLIT")
-    if presplit_env is None:
-        presplit = 1.3 if _paged_only_size(num) else 0.0
-    else:
-        presplit = float(presplit_env)
+    # (accel/presplit.py). Opt-in; no-op on uniform meshes (area gate);
+    # images bit-identical (same triangle records, different node
+    # membership). Whether it pays on the GPU is not measured yet.
+    presplit = float(os.environ.get("TRT_BVH_PRESPLIT", "0"))
     presplit_gate = float(os.environ.get("TRT_PRESPLIT_GATE", "16"))
 
     def build():
@@ -112,13 +90,10 @@ def _cached_bvh_build(v0, v1, v2, max_depth, min_leaf_size, builder, num):
                 from .. import accel
 
                 if accel.native.native_available():
-                    try:
-                        return accel.native.build_bvh_native(
-                            v0, v1, v2, max_depth=max_depth,
-                            min_leaf_size=min_leaf_size, mode="sweep",
-                        )
-                    except RuntimeError:
-                        pass  # stale .so without the sweep entry point
+                    return accel.native.build_bvh_native(
+                        v0, v1, v2, max_depth=max_depth,
+                        min_leaf_size=min_leaf_size, mode="sweep",
+                    )
             return build_bvh(
                 v0, v1, v2, max_depth=max_depth,
                 min_leaf_size=min_leaf_size, mode="sweep",
@@ -223,7 +198,7 @@ class MeshPrimitive:
         uv0=None,
         uv1=None,
         uv2=None,
-        max_depth: int = 48,
+        max_depth: int = MAX_BVH_DEPTH,
         exact_normals: bool = True,
         builder: str = "auto",
         min_leaf_size: int | None = None,
@@ -241,14 +216,17 @@ class MeshPrimitive:
         "numpy" forces the Python path.
 
         ``min_leaf_size`` defaults to 16 (the reference splits to single
-        triangles, BVHTree.hpp:214; pass 1 for that) — wider leaves fit
-        the packet kernel's 8-triangles-per-step shape and shrink the
-        wide-BVH node table. Rendered images are identical either way;
-        only traversal cost changes."""
+        triangles, BVHTree.hpp:214; pass 1 for that). Rendered images
+        are identical either way; only traversal cost changes.
+
+        ``max_depth`` may not exceed MAX_BVH_DEPTH: every traversal
+        stack is sized from it."""
+        if not 1 <= max_depth <= MAX_BVH_DEPTH:
+            raise ValueError(
+                f"max_depth must be in [1, {MAX_BVH_DEPTH}], got {max_depth}"
+            )
         if min_leaf_size is None:
-            # default 16; TRT_MIN_LEAF overrides for perf sweeps (r1
-            # sweep on the 82k-tri config: 4 -> 94.7, 8 -> 110.9,
-            # 16 -> 124.3, 32 -> 123.1 Mrays/s)
+            # default 16; TRT_MIN_LEAF overrides for sweeps
             import os
 
             min_leaf_size = int(os.environ.get("TRT_MIN_LEAF", "16"))

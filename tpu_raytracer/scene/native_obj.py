@@ -1,7 +1,7 @@
 """ctypes binding to the native OBJ parser (native/obj_loader.cpp).
 
 Same role split as the native BVH builder (accel/native.py): the .so
-compiles on first use with the repo Makefile, the ABI is plain C via
+compiles on first use with native/Makefile into native/build/, the ABI is plain C via
 ctypes (pybind11 is not in the image), and parse results are
 BIT-IDENTICAL to the Python parser (scene/objloader.py parse_obj) —
 tested — so the two are interchangeable. The native path exists for
@@ -12,13 +12,11 @@ load (the reference's loader is C++, OBJLoader.hpp:12-181).
 from __future__ import annotations
 
 import ctypes
-import pathlib
-import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libtrt_obj.so"
+from ..utils.native import build_library
+
 _lib = None
 _lib_failed = False
 
@@ -28,12 +26,7 @@ def _load() -> ctypes.CDLL | None:
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not _LIB_PATH.exists():
-            subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR), "libtrt_obj.so"],
-                check=True, capture_output=True, timeout=120,
-            )
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib = ctypes.CDLL(str(build_library("libtrt_obj.so")))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.trt_obj_parse.restype = ctypes.c_void_p

@@ -1,8 +1,7 @@
 """Scene container + compilation to flat device arrays.
 
 The reference's Scene (Scene.h:10-30, Scene.cpp:25-74) uploads
-pointer-linked structs to the GPU. The TPU-native equivalent is a pure
-"compile" step: ``Scene.compile()`` flattens every mesh, BVH, instance,
+pointer-linked structs to the GPU. Here that is a pure "compile" step: ``Scene.compile()`` flattens every mesh, BVH, instance,
 material and texture into one SoA pytree of jnp arrays (``SceneArrays``)
 that jits cleanly, shards trivially, and serializes to disk — fixing the
 reference's gap of rebuilding BVHs from OBJ on every launch
@@ -130,23 +129,6 @@ class SceneArrays:
     has_emissive: bool = dataclasses.field(
         default=True, metadata=dict(static=True)
     )
-    # HBM-paging tables (kernels/paged.py PagedTables) for beyond-VMEM
-    # scenes, attached by Scene.compile / ensure_paged. Riding inside
-    # the scene pytree lets the paged tables cross every jit boundary
-    # with the scene, so cast_rays_pallas can route big scenes to the
-    # paged kernel AUTOMATICALLY in every render mode (the reference
-    # never degrades either — everything resident, Scene.cpp:41-64).
-    paged: object | None = None
-    # Scene-level BVH over instance world boxes (kernels/tlas.py
-    # TlasTables) for multi-instance scenes — the acceleration level
-    # the reference's linear instance loop lacks (raycast.cu:26-51).
-    # Attached by Scene.compile for 2+ instances; refreshed by
-    # update_instance on concrete arrays (dropped under tracing).
-    tlas: object | None = None
-    # 4-wide collapsed BVH tables (kernels/wide4.py Wide4Tables) —
-    # the low-pop-count input of the dual-wide flagship and the TLAS
-    # BLAS loop. Attached at compile for resident-size scenes.
-    wide4: object | None = None
     # Per-corner vertex normals for smooth shading normals, packed
     # [T, 10]: vn0 | vn1 | vn2 | smooth-flag (the reference's disabled
     # vn-interpolation scaffolding, OBJLoader.hpp:119-135, realized).
@@ -165,11 +147,9 @@ class SceneArrays:
 
     def update_instance(self, index: int, instance: MeshInstance) -> "SceneArrays":
         """Functional single-instance pose update — the cheap animation
-        path (Scene::update_mesh_instance, Scene.cpp:67-74). The TLAS
-        (instance-level BVH) is rebuilt when the arrays are concrete,
-        dropped (-> linear-loop kernel) under tracing."""
+        path (Scene::update_mesh_instance, Scene.cpp:67-74)."""
         inv = instance.build_inv()
-        new = dataclasses.replace(
+        return dataclasses.replace(
             self,
             inst_pose=self.inst_pose.at[index].set(jnp.asarray(inv["pose"])),
             inst_inv_pose=self.inst_inv_pose.at[index].set(jnp.asarray(inv["inv_pose"])),
@@ -177,22 +157,15 @@ class SceneArrays:
             inst_inv_scale=self.inst_inv_scale.at[index].set(jnp.asarray(inv["inv_scale"])),
             inst_mesh=self.inst_mesh.at[index].set(instance.mesh_index),
             inst_material=self.inst_material.at[index].set(instance.material_index),
-            tlas=None,
         )
-        if self.tlas is not None and not isinstance(
-            new.inst_pose, jax.core.Tracer
-        ):
-            new = new.with_tlas()
-        return new
 
     # -- serialization (the BVH/scene cache the reference lacks) --------
     def save(self, fp: str) -> None:
         arrays = {
             f.name: np.asarray(getattr(self, f.name))
             for f in dataclasses.fields(self)
-            # derived tables / static flags; rebuilt on demand after load
-            if f.name not in ("paged", "tlas", "wide4", "has_sky",
-                              "has_textures", "has_emissive")
+            # static flags; rebuilt from the arrays after load
+            if f.name not in ("has_sky", "has_textures", "has_emissive")
             and getattr(self, f.name) is not None  # optional tri_vnorm
         }
         np.savez_compressed(fp, **arrays)
@@ -215,41 +188,6 @@ class SceneArrays:
             (np.asarray(kw["mat_illumination"]) > 0).any()
         )
         return cls(**kw)
-
-    def with_paging(self) -> "SceneArrays":
-        """Attach the HBM-paging tables (idempotent eager host work —
-        call with concrete arrays, outside jit)."""
-        from ..kernels.paged import prepare_paged
-
-        if self.paged is not None:
-            return self
-        base = dataclasses.replace(self, paged=None)
-        return dataclasses.replace(self, paged=prepare_paged(base))
-
-    def with_tlas(self) -> "SceneArrays":
-        """Attach the instance-level TLAS (idempotent eager host work —
-        call with concrete arrays, outside jit)."""
-        from ..kernels.tlas import build_tlas
-
-        if self.tlas is not None:
-            return self
-        return dataclasses.replace(self, tlas=build_tlas(self))
-
-    def with_wide4(self) -> "SceneArrays":
-        """Attach the 4-wide collapsed BVH tables (idempotent eager
-        host work — concrete arrays, outside jit)."""
-        from ..kernels.wide4 import build_wide4
-
-        if self.wide4 is not None:
-            return self
-        return dataclasses.replace(self, wide4=build_wide4(self))
-
-    def needs_paging(self) -> bool:
-        """True when the packed tables exceed the resident kernel's
-        VMEM budget (shape-only check — works on tracers too)."""
-        from ..kernels.traversal import VMEM_SCENE_BUDGET, _scene_vmem_bytes
-
-        return _scene_vmem_bytes(self) > VMEM_SCENE_BUDGET
 
 
 class Scene:
@@ -294,10 +232,9 @@ class Scene:
         and the per-triangle material ids (aligned with the merged
         mesh's BVH-reordered triangles).
 
-        Static-scene optimization: the packet kernel traverses per
-        instance, so N instances cost N serial traversals per tile even
-        when each mesh is small (measured: the 5-instance whitted scene
-        casts at ~39 Mrays/s vs 141 for a single-mesh scene). Flattening
+        Static-scene optimization: traversal walks every instance in
+        turn, so N instances cost N walks per ray even when each mesh is
+        small. Flattening
         trades the reference's cheap per-instance pose updates
         (Scene.cpp:67-74) for one merged BVH — use for scenes whose
         instances don't move. Transforms match hit_attributes exactly
@@ -367,7 +304,6 @@ class Scene:
 
     def compile(self, box_pad_ulp: float = 2.0 ** -21,
                 flatten_static: bool = False,
-                auto_page: bool = True,
                 _tri_mat: np.ndarray | None = None) -> SceneArrays:
         """Flatten to SceneArrays (the upload_to_device analog,
         Scene.cpp:25-65).
@@ -387,8 +323,7 @@ class Scene:
             raise ValueError("scene needs at least one mesh, instance and material")
         if flatten_static:
             flat, tri_mat_src = self.flattened()
-            return flat.compile(box_pad_ulp=box_pad_ulp,
-                                auto_page=auto_page, _tri_mat=tri_mat_src)
+            return flat.compile(box_pad_ulp=box_pad_ulp, _tri_mat=tri_mat_src)
 
         # --- triangles + BVH nodes, concatenated with offsets ---
         tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
@@ -402,71 +337,30 @@ class Scene:
         for mesh_id, mesh in enumerate(self.meshes):
             b = mesh.bvh
             internal = b.child_a >= 0
-            # Invariants the packet kernel's packed node codes rely on
-            # (kernels/traversal.py): DFS preorder (left child follows
-            # its parent) and bounded leaf sizes.
-            idx = np.nonzero(internal)[0]
-            # ValueError (not assert): these are load-bearing for the
-            # packet kernel's packed node codes and must survive -O.
-            if not (b.child_a[idx] == idx + 1).all():
-                raise ValueError("BVH not DFS preorder")
-            if not b.leaf_count.max(initial=0) < 1024:
-                raise ValueError(
-                    f"leaf with {b.leaf_count.max()} triangles exceeds the "
-                    "kernel's 10-bit leaf size (degenerate mesh?)"
-                )
+            n_tri = mesh.num_triangles
 
-            # 8-ALIGNED LEAF LAYOUT: re-pack this mesh's (already
-            # leaf-contiguous) triangles so every leaf's block starts at
-            # a multiple of 8 = the packed-record row width. The packet
-            # kernel's leaf loop then loads ONE 128-lane row per
-            # 8-triangle group with compile-time extraction masks
-            # (kernels/traversal.py leaf_loop) instead of one dynamic
-            # row load + cross-lane reduce per triangle. Gaps hold
-            # degenerate all-zero triangles: normal == 0 fails every
-            # backend's denom test, and leaf counts never cover them.
-            leaves = np.nonzero(~internal)[0]
-            leaves = leaves[np.argsort(b.leaf_start[leaves], kind="stable")]
-            counts = b.leaf_count[leaves].astype(np.int64)
-            aligned = (counts + 7) // 8 * 8
-            new_starts = np.concatenate(([0], np.cumsum(aligned)[:-1]))
-            new_total = int(aligned.sum())
-            leaf_of_pos = np.repeat(np.arange(len(leaves)), aligned)
-            off_in_leaf = np.arange(new_total) - new_starts[leaf_of_pos]
-            src = b.leaf_start[leaves][leaf_of_pos] + off_in_leaf
-            pad = off_in_leaf >= counts[leaf_of_pos]
-            src = np.where(pad, 0, src)
-
-            tri_mesh.append(np.full(new_total, mesh_id, np.int32))
+            tri_mesh.append(np.full(n_tri, mesh_id, np.int32))
             if mesh.vn0 is not None:
-                vn = np.concatenate(
+                vnorm_parts.append(np.concatenate(
                     [mesh.vn0, mesh.vn1, mesh.vn2,
                      mesh.vn_mask[:, None].astype(np.float32)], axis=1
-                )
+                ))
             else:
-                vn = np.zeros((mesh.num_triangles, 10), np.float32)
-            vnorm_parts.append(
-                np.where(pad[:, None], np.float32(0.0), vn[src])
-            )
+                vnorm_parts.append(np.zeros((n_tri, 10), np.float32))
             # per-triangle materials (flattened scenes only); -1 =
-            # resolve via the instance, pads get -1
-            mat_src = (
-                _tri_mat if (_tri_mat is not None and mesh_id == 0)
-                else np.full(mesh.num_triangles, -1, np.int32)
-            )
+            # resolve via the instance
             tri_mat_parts.append(
-                np.where(pad, np.int32(-1), mat_src[src]).astype(np.int32)
+                _tri_mat.astype(np.int32)
+                if (_tri_mat is not None and mesh_id == 0)
+                else np.full(n_tri, -1, np.int32)
             )
             for k, arr in (
                 ("v0", mesh.v0), ("v1", mesh.v1), ("v2", mesh.v2),
                 ("normal", mesh.normal),
                 ("uv0", mesh.uv0), ("uv1", mesh.uv1), ("uv2", mesh.uv2),
             ):
-                tri_parts[k].append(
-                    np.where(pad[:, None], np.float32(0.0), arr[src])
-                )
-            ls = np.zeros(b.num_nodes, np.int64)
-            ls[leaves] = new_starts
+                tri_parts[k].append(arr)
+            ls = np.where(internal, 0, b.leaf_start.astype(np.int64))
 
             node_parts["min"].append(b.node_min)
             node_parts["max"].append(b.node_max)
@@ -475,7 +369,7 @@ class Scene:
             node_parts["ls"].append((ls + tri_off).astype(np.int32))
             node_parts["lc"].append(b.leaf_count)
             mesh_root.append(node_off)
-            tri_off += new_total
+            tri_off += n_tri
             node_off += b.num_nodes
 
         # --- instances ---
@@ -527,8 +421,8 @@ class Scene:
             if atlas_parts
             else np.zeros((1, 3), np.uint8)
         )
-        # pack r|g<<8|b<<16 into one i32 per texel: single-word gathers
-        # are far cheaper than [P, 3] u8 row gathers on TPU
+        # pack r|g<<8|b<<16 into one i32 per texel: one word per texel
+        # fetch instead of a [P, 3] u8 row gather
         a32 = atlas_u8.astype(np.int32)
         atlas = a32[:, 0] | (a32[:, 1] << 8) | (a32[:, 2] << 16)
 
@@ -587,14 +481,4 @@ class Scene:
                 if any(m.vn0 is not None for m in self.meshes) else None
             ),
         )
-        # Beyond-VMEM scenes get their HBM-paging tables attached at
-        # compile time, so EVERY render mode routes to the paged packet
-        # kernel automatically (no flags, no slow fallback) — parity
-        # with the reference's never-degrades residency (Scene.cpp:41-64).
-        if auto_page and arrays.needs_paging():
-            arrays = arrays.with_paging()
-        else:
-            arrays = arrays.with_wide4()
-        if arrays.num_instances >= 2:
-            arrays = arrays.with_tlas()
         return arrays

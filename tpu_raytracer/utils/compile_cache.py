@@ -1,27 +1,44 @@
 """Persistent XLA compilation cache.
 
-TPU compiles for the packet kernels run 1-5 minutes (CLAUDE.md); the
-reference pays its analogous cost once per nvcc build, while a JAX
-process pays it per run. Enabling JAX's persistent compilation cache
-makes repeat runs of an unchanged kernel/jit start in seconds: compiled
-executables are serialized under ``TRT_COMPILE_CACHE_DIR`` (default
-``~/.cache/tpu_raytracer/xla``) keyed on the computation, compile
-options, and backend version, so correctness is unaffected.
+A JAX process pays every compile once per run unless the persistent
+cache is on; with it, repeat runs of an unchanged jit load the compiled
+executable instead. Entries are keyed on the computation, compile
+options and backend version, so correctness is unaffected.
 
-Opt-out with ``TRT_COMPILE_CACHE=0``. The app driver, the interactive
-viewers, and the bench entry points all call :func:`enable` — library
-users embedding ``tpu_raytracer`` call it themselves (JAX global
-config, so the embedding application should own the decision).
+Where the cache lives:
+
+* ``JAX_COMPILATION_CACHE_DIR``, when set — JAX reads it itself, and
+  no other directory is set in code;
+* otherwise ``.cache/xla`` inside the checkout (git-ignored). The path
+  is fixed because it is part of the cache key: a directory that moves
+  never hits.
+
+Opt out with ``TRT_COMPILE_CACHE=0``. The app driver, the interactive
+viewers, the bench entry points and ``chip_smoke.py`` call
+:func:`enable`; library users embedding ``tpu_raytracer`` call it
+themselves (JAX global config, so the embedding application owns the
+decision).
 """
 
 from __future__ import annotations
 
 import os
 
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".cache", "xla",
+)
+
 _enabled = False
 
 
-def enable(cache_dir: str | None = None) -> bool:
+def cache_dir() -> str:
+    """The directory the cache uses: the environment's, else the
+    checkout's fixed default."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
+def enable() -> bool:
     """Turn on JAX's persistent compilation cache (idempotent).
 
     Returns True if the cache is active after the call."""
@@ -32,21 +49,11 @@ def enable(cache_dir: str | None = None) -> bool:
         return True
     import jax
 
-    cache_dir = (
-        cache_dir
-        or os.environ.get("TRT_COMPILE_CACHE_DIR")
-        or os.path.join(
-            os.path.expanduser("~"), ".cache", "tpu_raytracer", "xla"
-        )
-    )
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # cache every computation that takes >=1s to compile (the big
-        # pallas kernel jits take minutes; tiny jits stay uncached to
-        # keep the cache dir lean)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _enabled = True
-    except Exception:  # pragma: no cover - config name skew across jax
-        return False
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    # cache every computation that takes >=1s to compile; tiny jits stay
+    # uncached to keep the cache dir lean
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    _enabled = True
     return True

@@ -2,7 +2,7 @@
 
 The reference's profiling surface is wall-clock FPS via cv::getTickCount
 (kernel.cu:275-293) plus an out-of-band Nsight Compute capture
-(.MISSING_LARGE_BLOBS:1). TPU-natively that maps to:
+(.MISSING_LARGE_BLOBS:1). Here that maps to:
 
   * ``FrameTimer`` — per-frame FPS / Mrays/s counters (the in-loop
     instrumentation);
@@ -19,7 +19,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/tpu_raytracer_trace"):
+def trace(log_dir: str = "chiprun_out/trace"):
     """Capture a device trace for the enclosed renders (ncu-rep analog).
 
     View with: tensorboard --logdir <log_dir>  (Profile tab)
